@@ -1,0 +1,118 @@
+"""Strided signal convolutions and GDN (counterpart of nic_tpu/models/layers.py).
+
+Activations are NHWC at every public function, as in nic_tpu. A
+convolution permutes its input to an NCHW view with channels-last strides,
+which cuDNN takes as it is, and permutes the result back.
+
+Padding reproduces XLA's "SAME":
+- down (stride s, k x k): pad p = max((ceil(H/s) - 1) * s + k - H, 0), top
+  p // 2 and bottom p - p // 2 (likewise for W), then a VALID strided conv;
+- up (5x5, stride 2; ``lax.conv_transpose`` with an un-flipped HWIO kernel):
+  ``conv_transpose2d`` of the flipped kernel with padding 1, cropped to
+  (2H, 2W).
+"""
+
+import math
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nic_tpu_torch.ops.bounds import lower_bound
+from nic_tpu_torch.ops.gdn import gdn as gdn_op
+
+
+def _same_pads(size: int, kernel: int, stride: int):
+    out = -(-size // stride)
+    p = max((out - 1) * stride + kernel - size, 0)
+    return p // 2, p - p // 2
+
+
+class SignalConv(nn.Module):
+    """2-D convolution with integer down- or up-sampling (NHWC in and out).
+
+    ``strides_down=s`` -> strided conv, output ceil(H/s);
+    ``strides_up=2``   -> 5x5 transposed conv, output 2H.
+
+    ``weight`` is stored as the torch op takes it: (out, in, kh, kw) for a
+    down or stride-1 conv; (in, out, kh, kw), spatially flipped, for an up
+    conv. ``weight_from_hwio`` converts an nic_tpu HWIO kernel.
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 5,
+                 strides_down: int = 1, strides_up: int = 1,
+                 use_bias: bool = True):
+        super().__init__()
+        if strides_down > 1 and strides_up > 1:
+            raise ValueError("Cannot both down- and up-sample.")
+        if strides_up > 1 and (strides_up, kernel) != (2, 5):
+            raise NotImplementedError("up-sampling is ported for 5x5 stride 2 only")
+        self.kernel = kernel
+        self.strides_down = strides_down
+        self.strides_up = strides_up
+        self.transpose = strides_up > 1
+        shape = ((in_channels, features) if self.transpose
+                 else (features, in_channels)) + (kernel, kernel)
+        # variance_scaling(1.0, "fan_avg", "uniform"), nic_tpu's kernel init.
+        fan_avg = kernel * kernel * (in_channels + features) / 2.0
+        limit = math.sqrt(3.0 / fan_avg)
+        self.weight = nn.Parameter(torch.empty(shape))
+        nn.init.uniform_(self.weight, -limit, limit)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def weight_from_hwio(self, kernel_hwio: np.ndarray) -> torch.Tensor:
+        """This layer's ``weight`` from an nic_tpu (kh, kw, in, out) kernel."""
+        k = np.asarray(kernel_hwio, np.float32)
+        if self.transpose:
+            k = k[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            k = k.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(k))
+
+    def forward(self, x):
+        n, h, w, _ = x.shape
+        if self.transpose:
+            y = F.conv_transpose2d(
+                x.permute(0, 3, 1, 2), self.weight, self.bias, stride=2, padding=1
+            )
+            return y.permute(0, 2, 3, 1)[:, : 2 * h, : 2 * w, :]
+        s, k = self.strides_down, self.kernel
+        top, bottom = _same_pads(h, k, s)
+        left, right = _same_pads(w, k, s)
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, stride=s)
+        return y.permute(0, 2, 3, 1)
+
+
+class GDN(nn.Module):
+    """Generalized divisive normalization layer.
+
+    Parameters use the square-root "nonnegative" reparameterization with a
+    small pedestal: the stored variable v maps to ``lower_bound(v, b)^2 - p``
+    with pedestal p = offset^2 and bound b = sqrt(minimum + p). The stored
+    values are nic_tpu's. Initial effective values: beta = 1, gamma = 0.1 * I.
+    """
+
+    def __init__(self, channels: int, inverse: bool = False,
+                 beta_min: float = 1e-6, reparam_offset: float = 2 ** -18):
+        super().__init__()
+        self.inverse = inverse
+        self.pedestal = reparam_offset ** 2
+        self.beta_bound = (beta_min + self.pedestal) ** 0.5
+        self.gamma_bound = reparam_offset
+        self.beta = nn.Parameter(
+            torch.full((channels,), (1.0 + self.pedestal) ** 0.5)
+        )
+        self.gamma = nn.Parameter(
+            torch.sqrt(0.1 * torch.eye(channels) + self.pedestal)
+        )
+
+    def effective_params(self):
+        """(beta, gamma) as the normalization uses them."""
+        beta = torch.square(lower_bound(self.beta, self.beta_bound)) - self.pedestal
+        gamma = torch.square(lower_bound(self.gamma, self.gamma_bound)) - self.pedestal
+        return beta, gamma
+
+    def forward(self, x):
+        beta, gamma = self.effective_params()
+        return gdn_op(x, beta, gamma, inverse=self.inverse)

@@ -1,0 +1,190 @@
+"""The port's command line, on the CPU: ``sga compress --device cpu`` against
+nic_tpu's CLI on the same checkpoint and images, the refusals of what is not
+ported, the device policy, and the port's independence from JAX.
+
+Tolerance: float32 values 1e-5 relative, elementwise with an absolute floor
+of the same fraction of the largest reference magnitude.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from nic_tpu.cli.main import main as jax_main
+from nic_tpu.models.mbt2018 import MeanScaleHyperprior as JaxMBT
+from nic_tpu_torch.cli.main import main
+from nic_tpu_torch.evaluation.results import rd_results_filename
+
+torch.set_num_threads(1)
+
+VALUE_RTOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUN = "mbt2018-num_filters=8-lmbda=0.01"
+FIELDS = ("mse", "psnr", "msssim", "msssim_db", "est_bpp", "est_y_bpp", "est_z_bpp")
+
+
+def assert_rel(actual, expected, rtol=VALUE_RTOL):
+    actual = np.asarray(actual, np.float64)
+    expected = np.asarray(expected, np.float64)
+    floor = rtol * max(float(np.nanmax(np.abs(expected), initial=0.0)), 1e-30)
+    np.testing.assert_allclose(actual, expected, rtol=rtol, atol=floor)
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """A JAX-initialized nf=8 checkpoint and two 64x64 photo crops."""
+    d = tmp_path_factory.mktemp("cli")
+    params = JaxMBT(num_filters=8).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), training=True,
+        rng=jax.random.PRNGKey(1))["params"]
+    run_dir = d / "ckpt" / RUN
+    run_dir.mkdir(parents=True)
+    flat = traverse_util.flatten_dict(params, sep="/")
+    np.savez(run_dir / "params-0.npz", **{k: np.asarray(v) for k, v in flat.items()})
+    photos = np.load(os.path.join(ROOT, "data_real", "eval_photos.npy"))
+    np.save(d / "crops.npy", photos[:2, 100:164, 200:264])
+    return d
+
+
+def _argv(workdir, results, *extra, script="sga", its="0"):
+    return ["--num_filters", "8", "--checkpoint_dir", str(workdir / "ckpt"), script,
+            "compress", RUN, str(workdir / "crops.npy"), "--results_dir", str(results),
+            "--sga_its", its, *extra]
+
+
+def test_sga_compress_matches_jax_cli(workdir, capsys):
+    """With no SGA steps both CLIs transmit the plainly rounded amortized
+    latents, so their rd-*.npz files agree field by field."""
+    jax_main(_argv(workdir, workdir / "res_jax"))
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / "res_port"))
+    name = rd_results_filename("sga", RUN, "crops.npy", 0.01)
+    ref = np.load(workdir / "res_jax" / name)
+    got = np.load(workdir / "res_port" / name)
+    assert set(got.files) == set(ref.files) == set(FIELDS)
+    for k in FIELDS:
+        assert got[k].shape == ref[k].shape == (2,)
+        assert_rel(got[k], ref[k])
+    assert set(out["results"]) == set(FIELDS) and out["steps"] == 0
+    printed = capsys.readouterr().out
+    for k in FIELDS:
+        assert f"Avg {k}:" in printed
+
+
+def test_sga_compress_writes_results_and_opt_record(workdir):
+    results = workdir / "res_steps"
+    out = main(["--device", "cpu"] + _argv(workdir, results, "--save_opt_record",
+                                           "--seed", "3", its="4"))
+    rd = np.load(results / rd_results_filename("sga", RUN, "crops.npy", 0.01))
+    opt = np.load(results / rd_results_filename("sga", RUN, "crops.npy", 0.01,
+                                                prefix="opt"))
+    assert np.all(np.isfinite(rd["est_bpp"])) and rd["est_bpp"].shape == (2,)
+    assert opt["rd_loss"].shape == (4,) and np.all(np.isfinite(opt["rd_loss"]))
+    np.testing.assert_array_equal(opt["its"], np.arange(4))
+    assert out["steps"] == 4 and len(out["loop_ms"]) == 1
+
+
+def test_default_device_raises_without_a_card(workdir, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(_argv(workdir, workdir / "res_nocard"))
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.models.mbt2018 import MeanScaleHyperprior
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LatentOptimizer(MeanScaleHyperprior(8))
+
+
+@pytest.mark.parametrize("extra,script,before", [
+    ((), "mbt2018", ()),
+    ((), "map", ()),
+    ((), "bb_sga", ()),
+    (("out.ntc",), "sga", ()),
+    (("--data_parallel",), "sga", ()),
+    (("--spatial",), "sga", ()),
+    (("--distortion", "msssim"), "sga", ()),
+    (("--quant", "int8"), "sga", ()),
+    (("--save_reconstruction",), "sga", ()),
+    ((), "sga", ("--verbose",)),
+])
+def test_unported_parts_exit_nonzero(workdir, extra, script, before):
+    argv = ["--device", "cpu", *before] + _argv(workdir, workdir / "res_x", *extra,
+                                                script=script)
+    with pytest.raises(SystemExit) as info:
+        main(argv)
+    assert "not ported yet (ROADMAP.md)" in str(info.value.code)
+
+
+@pytest.mark.parametrize("argv", [
+    ["sga", "train", "--train_glob", "x/*.png"],
+    ["sga", "decompress", "run", "in.ntc"],
+    ["learned_prior", "--num_channels", "4", "--data_path", "x.npy"],
+])
+def test_unported_commands_exit_nonzero(argv):
+    with pytest.raises(SystemExit) as info:
+        main(argv)
+    assert "not ported yet (ROADMAP.md)" in str(info.value.code)
+
+
+_IMPORT_CHECK = r"""
+import json, pkgutil, importlib, sys
+import nic_tpu_torch
+names = ["nic_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    nic_tpu_torch.__path__, "nic_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nic_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_nic_tpu():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "nic_tpu_torch.infer.engine" in report["modules"]
+    assert "nic_tpu_torch.cli.main" in report["modules"]
+    assert report["bad"] == []
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_name_neither_jax_nor_nic_tpu():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "nic_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    for p in paths:
+        assert not _imported_roots(p) & {"jax", "jaxlib", "flax", "nic_tpu"}, p
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    """No card here: the script exits non-zero and prints no result; alone in
+    a directory it fails too."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), lone)
+    for cwd, script in ((ROOT, os.path.join(ROOT, "chip_smoke.py")),
+                        (tmp_path, str(lone))):
+        proc = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
