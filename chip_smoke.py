@@ -5,7 +5,9 @@
 
 Phases, each printed with its elapsed seconds:
   1. device  - the card's name and count, and nvidia-smi's name and power limit;
-  2. build   - nvcc builds the GDN kernel (K1) from nic_tpu_torch/csrc/gdn.cu;
+  2. build   - nvcc builds K1 (csrc/gdn.cu) and K2 (csrc/convt_igdn.cu) and g++
+               the rANS coder (csrc/rans.cpp), the three compilers started
+               together;
   3. K1      - kernel against its plain PyTorch version (GDN and IGDN, float32
                and bfloat16, forward and dx) and its timings beside its bound,
                the plain version and cuBLAS's addmm;
@@ -13,8 +15,21 @@ Phases, each printed with its elapsed seconds:
                checkpoint on data_real/eval_photos.npy against nic_tpu's
                numbers, and the card against the port's own CPU run on a crop;
   5. main path - ``python -m nic_tpu_torch ... sga compress`` in-process, with
-               K1's launches counted from zero.
-Then a JSON line of kernel measurements, nvidia-smi's line, and as the last
+               K1's launches counted from zero; it also writes its bitstream,
+               and ``sga decompress`` reads it back exactly;
+  6. K2      - the fused up-conv + (I)GDN kernel against its plain version on
+               the real g_s layers (fed the photos' activations), an odd shape
+               and the inputs of ``exp_fused_convt bench``, float32 and
+               bfloat16, GDN and IGDN; against the model's
+               own layer; fused_synthesis_layer's dx; timings beside its bound,
+               the plain version and cuDNN's conv_transpose2d; then its path,
+               ``exp_fused_convt bench`` and a fused_synthesis_layer step, with
+               K2's launches counted from zero;
+  7. bitstreams - ``mbt2018 compress`` of the photos to a file and
+               ``mbt2018 decompress`` of it: exact, actual bpp beside nic_tpu's,
+               K1's launches counted from zero on each.
+Then a JSON line of kernel measurements (``kernels``) and of each path's own
+measurements (``paths``), nvidia-smi's line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero, and with
 no card the script exits non-zero before it prints any result.
 """
@@ -52,6 +67,13 @@ GS_ROWS = (9216, 36864, 147456)
 JAX_AMORTIZED_BPP = 0.5309465527534485
 JAX_AMORTIZED_PSNR = 29.16172218322754
 BPP_RTOL = 0.005      # 0.5 %
+# nic_tpu's actual bpp of `mbt2018 compress` of the same photos (one stream
+# of the 3-image batch, 38561 bytes), on the CPU:
+#   JAX_PLATFORMS=cpu python -m nic_tpu --num_filters 192 \
+#     --checkpoint_dir checkpoints_synth3 mbt2018 compress --results_dir r \
+#     mbt2018-num_filters=192-lmbda=0.01 data_real/eval_photos.npy photos.ntc
+#   -> avg_batch_actual_bpp in r/rd-mbt2018-...-input=eval_photos.npy.npz
+JAX_AMORTIZED_ACTUAL_BPP = 0.5230170355902778
 PSNR_ATOL_DB = 0.05
 # nic_tpu's SGA record for this checkpoint (bf16 transforms, 2000 steps),
 # results/photos_synth3/rd_curve.json; printed beside the port's, not held.
@@ -68,7 +90,18 @@ CROP_LATENT_RTOL = 1e-4
 CROP_BPP_RTOL = 1e-2
 CROP_PSNR_ATOL_DB = 0.05
 
-# H100 SXM peaks (NVIDIA's data sheet) for K1's bound.
+# K2 against its plain version (its own formulation in fp32 on the same
+# inputs), max-norm relative: float32 1e-5 (summation order), bfloat16 2e-2
+# (output rounding, a few ulps). Against the model's own layer (cuDNN's fp32
+# transposed conv, then K1's IGDN) and the composite's dx: 1e-5 (float32,
+# summation order).
+K2_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+K2_MODEL_RTOL = 1e-5
+# K2 at an odd shape, and at the JAX bench's g_s layers at N = 24.
+K2_ODD_SHAPE = (2, 13, 9, 192)
+K2_BENCH_SHAPES = ((24, 48, 32, 192), (24, 96, 64, 192), (24, 192, 128, 192))
+
+# H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; dense bf16
 
@@ -226,24 +259,29 @@ def check_amortized(model_cpu):
     return res
 
 
-def run_main_path(amortized):
-    """sga compress through the CLI entry point, K1's launches counted."""
+def read_png(path):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def run_main_path(amortized, workdir):
+    """sga compress through the CLI entry point, K1's launches counted; it
+    writes its bitstream, and sga decompress reads it back exactly."""
     import numpy as np
 
     from nic_tpu_torch.cli.main import main as cli_main
     from nic_tpu_torch.ops import gdn_cuda
 
-    results_dir = tempfile.mkdtemp(prefix="nic_tpu_torch_smoke_")
-    try:
-        argv = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, "sga",
-                "compress", RUN, PHOTOS, "--sga_its", str(SGA_ITS),
-                "--results_dir", results_dir]
-        gdn_cuda.launches = 0
-        out = cli_main(argv)
-        launches = gdn_cuda.launches
-        written = os.listdir(results_dir)
-    finally:
-        shutil.rmtree(results_dir)
+    results_dir = os.path.join(workdir, "results_sga")
+    stream = os.path.join(workdir, "photos_sga.ntc")
+    common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, "sga"]
+    gdn_cuda.launches = 0
+    out = cli_main(common + ["compress", RUN, PHOTOS, stream, "--sga_its", str(SGA_ITS),
+                             "--results_dir", results_dir])
+    launches = gdn_cuda.launches
+    written = os.listdir(results_dir)
     res = out["results"]
     for k, v in res.items():
         if not np.all(np.isfinite(v)):
@@ -265,7 +303,272 @@ def run_main_path(amortized):
         raise AssertionError(f"K1 launched {launches} times on the main path")
     if not rd_opt < rd_base:
         raise AssertionError("SGA did not lower the RD objective below amortized")
-    return launches, ms_step
+
+    num_pixels = out["pixels"].size // 3
+    actual = out["bytes"] * 8 / num_pixels
+    log(f"sga compress: wrote {out['bytes']} bytes = {actual!r} bpp actual (est "
+        f"{float(res['est_bpp'].mean())!r}); codec ms {fmt_timing(out['timing'])}")
+    png = os.path.join(workdir, "photos_sga.png")
+    gdn_cuda.launches = 0
+    dec = cli_main(common + ["decompress", RUN, stream, png])
+    decode_launches = gdn_cuda.launches
+    check_exact("sga", dec, png, out["pixels"])
+    log(f"sga decompress: exact; codec ms {fmt_timing(dec['timing'])}; K1 launches "
+        f"on the decode path {decode_launches}")
+    if decode_launches < 3:
+        raise AssertionError("the decode path did not run K1 in g_s")
+    return launches, dict(ms_per_step=ms_step, k1_launches_encode=launches,
+                          k1_launches_decode=decode_launches, actual_bpp=actual,
+                          est_bpp=float(res["est_bpp"].mean()),
+                          encode_ms=out["timing"], decode_ms=dec["timing"])
+
+
+def fmt_timing(timing):
+    return ", ".join(f"{k} {v:.1f}" for k, v in sorted(timing.items()))
+
+
+def check_exact(script, dec, png, pixels):
+    """The decoded batch and the written PNG (image 0) equal the compress
+    side's uint8 reconstruction exactly."""
+    import numpy as np
+
+    got = np.round(dec["x_hat"] * 255.0).astype(np.uint8)
+    if got.shape != pixels.shape or not np.array_equal(got, pixels):
+        n_diff = int(np.sum(got != pixels)) if got.shape == pixels.shape else -1
+        raise AssertionError(f"{script} decompress differs from the compress side at "
+                             f"{n_diff} values")
+    if not np.array_equal(read_png(png), pixels[0]):
+        raise AssertionError(f"{script} decompress: the PNG differs from the compress side")
+
+
+def run_bitstreams(workdir):
+    """mbt2018 compress of the photos to a file, then mbt2018 decompress of
+    it, through the CLI: exact, and the actual bpp beside nic_tpu's."""
+    import numpy as np
+
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, "mbt2018"]
+    stream = os.path.join(workdir, "photos.ntc")
+    png = os.path.join(workdir, "photos.png")
+    gdn_cuda.launches = 0
+    out = cli_main(common + ["compress", RUN, PHOTOS, stream, "--results_dir",
+                             os.path.join(workdir, "results_mbt2018")])
+    encode_launches = gdn_cuda.launches
+    gdn_cuda.launches = 0
+    dec = cli_main(common + ["decompress", RUN, stream, png])
+    decode_launches = gdn_cuda.launches
+    check_exact("mbt2018", dec, png, out["pixels"])
+    res = out["results"]
+    actual = float(res["avg_batch_actual_bpp"])
+    est = float(res["est_bpp"].mean())
+    d_actual = abs(actual - JAX_AMORTIZED_ACTUAL_BPP) / JAX_AMORTIZED_ACTUAL_BPP
+    n = out["pixels"].shape[0]
+    log(f"mbt2018 compress -> decompress: exact; actual {actual!r} bpp "
+        f"({out['bytes']} bytes) vs est {est!r} bpp; nic_tpu's actual "
+        f"{JAX_AMORTIZED_ACTUAL_BPP!r} (rel diff {d_actual:.2e}, tolerance "
+        f"{BPP_RTOL:g})")
+    log(f"codec ms for {n} images, encode: {fmt_timing(out['timing'])}; decode: "
+        f"{fmt_timing(dec['timing'])}")
+    log(f"mbt2018: K1 launches on the encode path {encode_launches} (>= 6 required: "
+        f"g_a and g_s), on the decode path {decode_launches} (>= 3 required: g_s)")
+    if not np.isfinite(actual) or d_actual > BPP_RTOL:
+        raise AssertionError("mbt2018 actual bpp disagrees with nic_tpu's")
+    if encode_launches < 6 or decode_launches < 3:
+        raise AssertionError("the mbt2018 codec path did not run K1 in every GDN")
+    return dict(k1_launches_encode=encode_launches, k1_launches_decode=decode_launches,
+                actual_bpp=actual, est_bpp=est, encode_ms=out["timing"],
+                decode_ms=dec["timing"])
+
+
+def k2_bound_ms(shape, dtype, co=CHANNELS):
+    n, h, w, c = shape
+    size = 4 if dtype == "float32" else 2
+    nbytes = (n * h * w * c + 4 * n * h * w * co + 25 * c * co) * size + (co * co + 2 * co) * 4
+    flops = 2 * n * h * w * 25 * c * co + 2 * n * 4 * h * w * co * co
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gs_layers(model_cpu):
+    """The real g_s layers of the checkpoint: for each, its input from the
+    photos' amortized latents, its HWIO kernel, bias, IGDN beta and gamma,
+    and the model's own output (SignalConv up, then the IGDN, on the card)."""
+    import numpy as np
+    import torch
+
+    model = copy.deepcopy(model_cpu).to("cuda")
+    x = torch.from_numpy(np.load(PHOTOS).astype(np.float32) / 255.0).to("cuda")
+    layers = []
+    with torch.no_grad():
+        h = model(x)["y_tilde"]
+        for i in range(3):
+            conv = getattr(model.synthesis, f"layer_{i}")
+            igdn = getattr(model.synthesis, f"igdn_{i}")
+            beta, gamma = igdn.effective_params()
+            w = conv.weight.detach().permute(2, 3, 0, 1).flip(0, 1).contiguous()
+            out = igdn(conv(h))
+            layers.append(dict(x=h, w=w, bias=conv.bias.detach(), beta=beta,
+                               gamma=gamma, model_out=out))
+            h = out
+    return layers
+
+
+def check_k2(layers):
+    """K2 against its plain version (f32, bf16, GDN, IGDN) on the real g_s
+    layers, an odd shape and the inputs that ``exp_fused_convt bench`` gives
+    it; against the model's own layer; and fused_synthesis_layer's dx
+    against the composite's. Returns the largest float32 error against the
+    plain version (absolute)."""
+    import torch
+
+    from nic_tpu_torch.ops import convt_igdn
+    from nic_tpu_torch.tools import exp_fused_convt
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, h, w, c = K2_ODD_SHAPE
+    odd = dict(x=torch.randn(n, h, w, c, device="cuda", generator=gen),
+               w=0.05 * torch.randn(5, 5, c, c, device="cuda", generator=gen),
+               bias=0.1 * torch.randn(c, device="cuda", generator=gen),
+               beta=0.5 + torch.rand(c, device="cuda", generator=gen),
+               gamma=0.05 * torch.rand(c, c, device="cuda", generator=gen))
+    bench = dict(zip(("x", "w", "bias", "beta", "gamma"), exp_fused_convt.bench_inputs()))
+    max_abs = 0.0
+    with torch.no_grad():
+        for case in layers + [odd, bench]:
+            shape = tuple(case["x"].shape)
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                xk, wk = case["x"].to(dt), case["w"].to(dt)
+                for inverse in (True, False):
+                    args = (xk, wk, case["bias"], case["beta"], case["gamma"], inverse)
+                    out = convt_igdn.conv_transpose_igdn_up2(*args)
+                    ref = convt_igdn.conv_transpose_igdn_up2_plain(*args)
+                    torch.cuda.synchronize()
+                    err = rel_err(out, ref)
+                    name = "IGDN" if inverse else "GDN"
+                    log(f"K2 {name} {shape} {dtype}: rel err {err:.3e} vs plain "
+                        f"(tolerance {K2_RTOL[dtype]:g})")
+                    if out.shape != ref.shape or not err <= K2_RTOL[dtype]:
+                        raise AssertionError(f"K2 {name} {shape} {dtype} disagrees with "
+                                             "its plain version")
+                    if dtype == "float32":
+                        max_abs = max(max_abs, float((out - ref).abs().max()))
+                    if dtype == "float32" and inverse and "model_out" in case:
+                        e_model = rel_err(out, case["model_out"])
+                        log(f"K2 IGDN {shape}: rel err {e_model:.3e} vs the model's own "
+                            f"layer (tolerance {K2_MODEL_RTOL:g})")
+                        if not e_model <= K2_MODEL_RTOL:
+                            raise AssertionError("K2 disagrees with the model's layer")
+
+    layer = layers[1]
+    args = [layer[k].clone().requires_grad_(k == "x")
+            for k in ("x", "w", "bias", "beta", "gamma")]
+    g = torch.randn(layer["model_out"].shape, device="cuda", generator=gen)
+    (dx,) = torch.autograd.grad(convt_igdn.fused_synthesis_layer(*args), [args[0]], g)
+    ref_args = [a.detach().requires_grad_(i == 0) for i, a in enumerate(args)]
+    (dx_ref,) = torch.autograd.grad(
+        convt_igdn.conv_transpose_igdn_up2_reference(*ref_args), [ref_args[0]], g)
+    e_dx = rel_err(dx, dx_ref)
+    log(f"fused_synthesis_layer {tuple(args[0].shape)}: dx rel err {e_dx:.3e} vs the "
+        f"composite's (tolerance {K2_MODEL_RTOL:g})")
+    if not e_dx <= K2_MODEL_RTOL:
+        raise AssertionError("fused_synthesis_layer's dx disagrees with the composite")
+    return max_abs
+
+
+def time_k2(layers):
+    """K2, its plain version and cuDNN's conv_transpose2d alone, at the main
+    path's g_s shapes (float32, and bfloat16 at the largest) and the JAX
+    bench's shapes at N = 24 (float32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nic_tpu_torch.ops import convt_igdn
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(l["x"], l, "float32") for l in layers]
+    cases.append((layers[-1]["x"], layers[-1], "bfloat16"))
+    for shape in K2_BENCH_SHAPES:
+        x = torch.randn(*shape, device="cuda", generator=gen)
+        cases.append((x, layers[0], "float32"))
+    table = []
+    for x, p, dtype in cases:
+        dt = getattr(torch, dtype)
+        x, w = x.to(dt).contiguous(), p["w"].to(dt).contiguous()
+        args = (x, w, p["bias"], p["beta"], p["gamma"], True)
+        # cuDNN's transposed conv alone, as the port's SignalConv calls it.
+        weight = w.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            ms = time_ms(lambda: convt_igdn.convt_igdn_forward_kernel(*args))
+            plain_ms = time_ms(lambda: convt_igdn.conv_transpose_igdn_up2_plain(*args))
+            library_ms = time_ms(lambda: F.conv_transpose2d(
+                x_nchw, weight, p["bias"].to(dt), stride=2, padding=1))
+        shape = tuple(x.shape)
+        bound_ms, bound_by = k2_bound_ms(shape, dtype)
+        table.append(dict(shape=shape, dtype=dtype, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        log(f"K2 IGDN {shape} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"conv_transpose2d [cuDNN] {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+            f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s {dtype})")
+        del x, w, args, weight, x_nchw
+        torch.cuda.empty_cache()
+    return table
+
+
+def run_k2_path(layers):
+    """K2's path, its launches counted from zero: ``exp_fused_convt bench``
+    at its default shape, then one fused_synthesis_layer forward and
+    backward on the largest real g_s layer."""
+    import torch
+
+    from nic_tpu_torch.ops import convt_igdn
+    from nic_tpu_torch.tools import exp_fused_convt
+
+    convt_igdn.launches = 0
+    bench = exp_fused_convt.main(["bench"])
+    layer = layers[-1]
+    x = layer["x"].clone().requires_grad_(True)
+    y = convt_igdn.fused_synthesis_layer(x, layer["w"], layer["bias"], layer["beta"],
+                                         layer["gamma"])
+    (dx,) = torch.autograd.grad(y.square().sum(), [x])
+    torch.cuda.synchronize()
+    launches = convt_igdn.launches
+    log(f"K2 path: exp_fused_convt bench {bench['shape']}: composite "
+        f"{bench['composite_ms']:.3f} ms/it, K2 {bench['k2_ms']:.3f} ms/it; "
+        f"fused_synthesis_layer fwd+bwd; K2 launches {launches}")
+    if launches < 1 or not bool(torch.isfinite(dx).all()):
+        raise AssertionError(f"K2's path launched K2 {launches} times")
+    return launches, dict(bench, k2_launches=launches)
+
+
+def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=max_abs, ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                library=library, **extra)
+
+
+def build_all():
+    """Build every native library from the checkout, the compilers started
+    together."""
+    from nic_tpu_torch.ops.build import build_libraries
+
+    sources = ("gdn.cu", "convt_igdn.cu", "rans.cpp")
+    t = time.perf_counter()
+    libs = build_libraries(sources, force=True)
+    log(f"build: nvcc (gdn.cu, convt_igdn.cu) and g++ (rans.cpp), run together, "
+        f"took {time.perf_counter() - t:.2f} s")
+    for source, lib in zip(sources, libs):
+        log(f"build: {os.path.relpath(lib, ROOT)}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: ptxas ({source}): {line.strip()}")
 
 
 def main():
@@ -276,7 +579,6 @@ def main():
         return 1
     from nic_tpu_torch import config
     from nic_tpu_torch.checkpoint import load_model
-    from nic_tpu_torch.ops.build import build_library
 
     config.set_fp32_precision()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -287,37 +589,51 @@ def main():
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    t = time.perf_counter()
-    lib = build_library("gdn.cu", force=True)
-    log(f"build: nvcc built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: ptxas: {line.strip()}")
+    build_all()
 
-    max_abs = check_k1()
-    timings = time_k1()
+    k1_max_abs = check_k1()
+    k1_timings = time_k1()
     log("K1 checked and timed")
 
     _, model_cpu = load_model(CKPT_DIR, RUN, 192, "cpu")
     amortized = check_amortized(model_cpu)
     log("amortized forward checked")
 
-    launches, ms_step = run_main_path(amortized)
-    log("main path done")
+    workdir = tempfile.mkdtemp(prefix="nic_tpu_torch_smoke_")
+    try:
+        k1_launches, sga_path = run_main_path(amortized, workdir)
+        log("main path done")
 
-    main_row = timings[len(GS_ROWS) - 1]
-    kernels = [dict(
-        name="gdn (K1, fused GDN/IGDN)", route="cuda",
-        source="nic_tpu_torch/csrc/gdn.cu", replaces="nic_tpu/ops/pallas_gdn.py:23",
-        launches=launches, max_abs_err=max_abs, ms=main_row["ms"],
-        plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
-        library="torch.addmm(beta, x^2, gamma), the cuBLAS product at K1's core",
-        shape=f"IGDN M={main_row['rows']} C={CHANNELS} float32",
-        shapes=timings, sga_ms_per_step=ms_step,
-    )]
-    print(json.dumps({"kernels": kernels}))
+        layers = gs_layers(model_cpu)
+        k2_max_abs = check_k2(layers)
+        k2_timings = time_k2(layers)
+        k2_launches, k2_path = run_k2_path(layers)
+        del layers
+        torch.cuda.empty_cache()
+        log("K2 checked, timed and driven")
+
+        mbt2018_path = run_bitstreams(workdir)
+        log("bitstreams done")
+    finally:
+        shutil.rmtree(workdir)
+
+    k1_row = k1_timings[len(GS_ROWS) - 1]
+    k2_row = k2_timings[len(GS_ROWS) - 1]
+    kernels = [
+        kernel_row(
+            "gdn (K1, fused GDN/IGDN)", "nic_tpu_torch/csrc/gdn.cu",
+            "nic_tpu/ops/pallas_gdn.py:23", k1_launches, k1_max_abs, k1_row,
+            "torch.addmm(beta, x^2, gamma), the cuBLAS product at K1's core",
+            shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32", shapes=k1_timings),
+        kernel_row(
+            "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
+            "nic_tpu/ops/pallas_convt.py:67", k2_launches, k2_max_abs, k2_row,
+            "torch.nn.functional.conv_transpose2d, cuDNN's product at K2's core",
+            shape=f"IGDN {k2_row['shape']} float32", shapes=k2_timings),
+    ]
+    paths = {"sga": sga_path, "mbt2018": mbt2018_path,
+             "exp_fused_convt bench + fused_synthesis_layer": k2_path}
+    print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

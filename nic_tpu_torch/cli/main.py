@@ -2,28 +2,37 @@
 
   python -m nic_tpu_torch [--device cuda|cpu] --num_filters 192 \\
       --checkpoint_dir checkpoints_synth3 \\
-      sga compress mbt2018-num_filters=192-lmbda=0.01 <input.png|batch.npy>
+      sga compress mbt2018-num_filters=192-lmbda=0.01 <input.png|batch.npy> [out.ntc]
+  python -m nic_tpu_torch ... mbt2018 compress <runname> <input> [out.ntc]
+  python -m nic_tpu_torch ... {mbt2018,sga} decompress <runname> <in.ntc> [out.png]
 
-It takes nic_tpu's command line. This slice runs ``sga compress`` with
-estimated rates; every other script, subcommand or flag exits non-zero with
+It takes nic_tpu's command line. This slice runs ``sga compress`` (with
+estimated rates, and a real bitstream when an output file is named),
+``mbt2018 compress`` (amortized latents, real bitstream) and their
+``decompress``; every other script, subcommand or flag exits non-zero with
 "not ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
-is given, and raises when there is no card.
+is given, and raises when there is no card. Streams decode with the same
+code on the same device type: ``decompress`` takes the ``--device`` that
+``compress`` was given.
 """
 
 import argparse
+import os
 import sys
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from nic_tpu_torch import config as cfg
-from nic_tpu_torch.utils import load_input, parse_lmbda_from_runname
+from nic_tpu_torch.utils import load_input, parse_lmbda_from_runname, write_png
 
 MODELS = ("mbt2018", "mbt2018_bb")
 METHOD_SCRIPTS = ("sga", "map", "ste", "unoise", "danneal")
 BB_SCRIPTS = ("bb_sga", "bb_no_sga", "bb_plain")
 ALL_SCRIPTS = MODELS + METHOD_SCRIPTS + BB_SCRIPTS
 FIELDS = ("mse", "psnr", "msssim", "msssim_db", "est_bpp", "est_y_bpp", "est_z_bpp")
+# Scripts whose compress and decompress this slice runs.
+PORTED = ("mbt2018", "sga")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,12 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command")
     sub.add_parser("train")
-    sub.add_parser("decompress")
 
     compress_cmd = sub.add_parser("compress")
-    compress_cmd.add_argument("runname")
-    compress_cmd.add_argument("input_file")
-    compress_cmd.add_argument("output_file", nargs="?")
     compress_cmd.add_argument("--results_dir", default="./results")
     compress_cmd.add_argument("--lambda", type=float, default=-1, dest="lmbda")
     compress_cmd.add_argument("--sga_its", type=int, default=2000)
@@ -58,6 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--save_opt_record", action="store_true",
         help="Save per-iteration loss records.",
     )
+    compress_cmd.add_argument(
+        "--save_reconstruction", action="store_true",
+        help="Save the reconstruction PNG (single-image inputs).",
+    )
+
+    decompress_cmd = sub.add_parser("decompress")
+    for c in (compress_cmd, decompress_cmd):
+        c.add_argument("runname")
+        c.add_argument("input_file")
+        c.add_argument("output_file", nargs="?")
     return parser
 
 
@@ -67,17 +82,15 @@ def _not_ported(what: str):
 
 def _check_ported(args, unknown: List[str]) -> None:
     """Exit non-zero on any part of nic_tpu's command line this slice lacks."""
-    if args.command != "compress":
+    if args.command not in ("compress", "decompress"):
         _not_ported(f"{args.script} {args.command}")
-    if args.script != "sga":
-        _not_ported(f"{args.script} compress")
+    if args.script not in PORTED:
+        _not_ported(f"{args.script} {args.command}")
     if unknown:
         _not_ported(' '.join(unknown))
     if args.verbose:
         _not_ported("--verbose (rounded-objective probes)")
-    if args.output_file:
-        _not_ported("writing a bitstream (output_file)")
-    if args.distortion != "mse":
+    if args.command == "compress" and args.distortion != "mse":
         _not_ported(f"--distortion {args.distortion}")
 
 
@@ -95,29 +108,91 @@ def _batches(X):
         yield X[i : i + bs]
 
 
-def run_compress(args) -> Dict[str, Any]:
-    """``sga compress``: optimize each batch's latents, save the RD results.
-
-    Returns the saved per-image results and the device time of each batch's
-    optimization loop (``loop_ms``, ``steps``).
-    """
+def _load(args):
     from nic_tpu_torch.checkpoint import load_model
+
+    device = cfg.resolve_device(args.device)
+    _, model = load_model(args.checkpoint_dir, args.runname, args.num_filters, device)
+    return device, model
+
+
+def _write(path: str, blob: bytes, num_pixels: int) -> None:
+    with open(path, "wb") as f:
+        f.write(blob)
+    print(f"Wrote {path}: {len(blob)} bytes "
+          f"({len(blob) * 8 / num_pixels:.4f} bpp actual)")
+
+
+def _compress_amortized(args, X) -> Dict[str, Any]:
+    """``mbt2018 compress``: estimated metrics and real range coding of the
+    amortized latents. Returns the saved results, the compress side's uint8
+    reconstruction of the last batch (``pixels``) and the codec's timing."""
+    from nic_tpu_torch.coding.codec import HyperpriorCodec
+    from nic_tpu_torch.evaluation.results import save_rd_results
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+
+    device, model = _load(args)
+    opt = LatentOptimizer(model, device)
+    codec = HyperpriorCodec(model, device)
+    results = {k: [] for k in FIELDS}
+    batch_actual_bpp, batch_sizes = [], []
+    num_pixels = int(np.prod(X.shape[1:3]))
+    blob, out = b"", {}
+    for batch in _batches(X):
+        metrics = opt.eval_amortized(batch)
+        for k in FIELDS:
+            results[k].extend(np.asarray(metrics[k]).tolist())
+        blob, out = codec.compress(batch)
+        batch_actual_bpp.append(len(blob) * 8 / (num_pixels * batch.shape[0]))
+        batch_sizes.append(batch.shape[0])
+
+    if args.output_file or cfg.WRITE_BITSTREAM_FOR_EVAL:
+        _write(args.output_file or (args.input_file + ".ntc"), blob,
+               num_pixels * batch_sizes[-1])
+
+    results = {k: np.asarray(v) for k, v in results.items()}
+    results["batch_actual_bpp"] = np.asarray(batch_actual_bpp)
+    results["batch_sizes"] = np.asarray(batch_sizes)
+    results["avg_batch_actual_bpp"] = np.asarray(
+        np.sum(np.asarray(batch_actual_bpp) * np.asarray(batch_sizes))
+        / np.sum(batch_sizes)
+    )
+    save_rd_results(
+        results, args.results_dir, args.script, args.runname, args.input_file,
+        lmbda=None,  # trained-script naming: rd-<runname>-input=...
+    )
+    return dict(results=results, pixels=out.get("pixels"), timing=codec.last_timing,
+                bytes=len(blob))
+
+
+def run_compress(args) -> Dict[str, Any]:
+    """``sga compress``: optimize each batch's latents, save the RD results,
+    and write the last batch's bitstream when an output file is named;
+    ``mbt2018 compress``: see ``_compress_amortized``.
+
+    For sga, returns the saved per-image results, the device time of each
+    batch's optimization loop (``loop_ms``, ``steps``), and, when a stream
+    was written, the uint8 reconstruction of the transmitted latents
+    (``pixels``) and the codec's timing.
+    """
     from nic_tpu_torch.evaluation.results import save_rd_results
     from nic_tpu_torch.infer.engine import LatentOptimizer
     from nic_tpu_torch.infer.methods import get_method
 
-    device = cfg.resolve_device(args.device)
     X = load_input(args.input_file)
     lmbda = _resolve_lmbda(args)
-    _, model = load_model(args.checkpoint_dir, args.runname, args.num_filters, device)
+    if args.script == "mbt2018":
+        return _compress_amortized(args, X)
+    device, model = _load(args)
     opt = LatentOptimizer(model, device)
     spec = get_method(args.script).replace(
         iterations=args.sga_its, annealing_rate=args.annealing_rate, t0=args.t0,
     )
     results = {k: [] for k in FIELDS}
     rd_losses, rounded_losses, loop_ms = [], [], []
+    last_res = None
     for batch in _batches(X):
-        res = opt.optimize(batch, lmbda, method=spec, seed=args.seed)
+        res = last_res = opt.optimize(batch, lmbda, method=spec, seed=args.seed)
         for k in FIELDS:
             results[k].extend(np.asarray(res[k]).tolist())
         rd_losses.append(res["losses"])
@@ -139,11 +214,48 @@ def run_compress(args) -> Dict[str, Any]:
             opt_record, args.results_dir, args.script, args.runname,
             args.input_file, lmbda, prefix="opt", verbose=False,
         )
+    if args.save_reconstruction and last_res is not None and X.shape[0] == 1:
+        recon_path = os.path.join(
+            args.results_dir,
+            f"recon-{args.script}-lmbda={lmbda:g}+{args.runname}"
+            f"-input={os.path.basename(args.input_file)}.png",
+        )
+        os.makedirs(args.results_dir, exist_ok=True)
+        write_png(recon_path, last_res["x_tilde"][0])
+        print(f"Saved reconstruction to {recon_path}")
+    out = dict(loop_ms=loop_ms, steps=spec.iterations)
+    if args.output_file and last_res is not None:
+        # The transmitted latents are plainly rounded: an integer-grid
+        # (mode=1) stream.
+        from nic_tpu_torch.coding.codec import HyperpriorCodec
+
+        codec = HyperpriorCodec(model, device)
+        blob = codec.compress_optimized(last_res["y"], last_res["z"], X.shape[1:3])
+        _write(args.output_file, blob, int(np.prod(last_res["x_tilde"].shape[:3])))
+        out.update(pixels=codec.last_pixels, timing=codec.last_timing, bytes=len(blob))
     results = {k: np.asarray(v) for k, v in results.items()}
     save_rd_results(
         results, args.results_dir, args.script, args.runname, args.input_file, lmbda
     )
-    return dict(results=results, loop_ms=loop_ms, steps=spec.iterations)
+    return dict(results=results, **out)
+
+
+def run_decompress(args) -> Dict[str, Any]:
+    """Decode a stream written by ``mbt2018 compress`` or ``sga compress``
+    (the codec dispatches on the stream's mode) and write the first image
+    as a PNG. Returns the decoded float pixels, the PNG's path and the
+    codec's timing."""
+    from nic_tpu_torch.coding.codec import HyperpriorCodec
+
+    with open(args.input_file, "rb") as f:
+        blob = f.read()
+    device, model = _load(args)
+    codec = HyperpriorCodec(model, device)
+    x_hat = codec.decompress(blob)
+    out = args.output_file or (args.input_file + ".png")
+    write_png(out, x_hat[0])
+    print(f"Wrote {out}")
+    return dict(x_hat=x_hat, path=out, timing=codec.last_timing)
 
 
 def main(argv: Optional[List[str]] = None):
@@ -157,6 +269,8 @@ def main(argv: Optional[List[str]] = None):
         parser.print_usage()
         sys.exit(2)
     _check_ported(args, unknown)
+    if args.command == "decompress":
+        return run_decompress(args)
     return run_compress(args)
 
 

@@ -38,6 +38,13 @@ EVAL_BATCH_NUM_PIXELS = 1e7
 
 CHECKPOINT_DIR = "./checkpoints"
 
+# Entropy-coding table parameters.
+CODER_PRECISION = 16      # bits of CDF precision for the rANS coder
+CONDITIONAL_TAIL_MASS = 2 ** -8
+
+# Whether `mbt2018 compress` writes a bitstream when no output file is named.
+WRITE_BITSTREAM_FOR_EVAL = False
+
 
 def get_eval_batch_size(num_pixels_per_image: int) -> int:
     """Auto batch size from a fixed pixel budget."""

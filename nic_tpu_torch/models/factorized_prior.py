@@ -1,6 +1,7 @@
 """Deep factorized prior / entropy bottleneck for the hyper-latent z
-(counterpart of nic_tpu/models/factorized_prior.py; the parts the SGA path
-needs: the CDF network, the likelihood, the medians and quantization).
+(counterpart of nic_tpu/models/factorized_prior.py: the CDF network, the
+likelihood, the medians and quantization, and the coding half: cdf, pdf,
+inverse_cdf, the PMF tables for the rANS coder and pmf_on_grid).
 
 The density: a monotone map built from K+1 stages
   u <- softplus(H_k) @ u + b_k ;  u <- u + tanh(a_k) * tanh(u)  (k < K)
@@ -35,6 +36,7 @@ class FactorizedEntropyModel(nn.Module):
                  init_scale: float = 10.0,
                  likelihood_bound: float = LIKELIHOOD_LOWER_BOUND):
         super().__init__()
+        self.channels = channels
         self.dims = tuple(dims)
         self.likelihood_bound = likelihood_bound
         filters = (1,) + self.dims + (1,)
@@ -52,25 +54,43 @@ class FactorizedEntropyModel(nn.Module):
         q = torch.tensor([-init_scale, 0.0, init_scale])
         self.quantiles = nn.Parameter(q.expand(channels, 1, 3).clone())
 
-    def _logits_cdf(self, u):
-        """CDF logits for u of shape (C, d, N)."""
+    def _logits_cdf(self, u, stop_gradient: bool = False):
+        """CDF logits for u of shape (C, d, N); ``stop_gradient`` keeps the
+        density's parameters out of the graph."""
+
+        def param(name):
+            v = getattr(self, name)
+            return v.detach() if stop_gradient else v
+
         logits = u
         k = len(self.dims)
         for i in range(k + 1):
-            m = F.softplus(getattr(self, f"matrix_{i}"))
-            logits = torch.matmul(m, logits) + getattr(self, f"bias_{i}")
+            m = F.softplus(param(f"matrix_{i}"))
+            logits = torch.matmul(m, logits) + param(f"bias_{i}")
             if i < k:
-                f = torch.tanh(getattr(self, f"factor_{i}"))
+                f = torch.tanh(param(f"factor_{i}"))
                 logits = logits + f * torch.tanh(logits)
         return logits
 
-    def likelihood(self, x):
+    def cdf(self, x, stop_gradient: bool = False):
+        """Model CDF of channels-last x."""
+        logits = self._logits_cdf(_channels_to_front(x), stop_gradient)
+        return _channels_to_back(torch.sigmoid(logits), x.shape)
+
+    def pdf(self, x, stop_gradient: bool = False):
+        """Model PDF = d/dx CDF, by forward-mode autodiff as in nic_tpu."""
+        _, tangent = torch.func.jvp(
+            lambda v: self.cdf(v, stop_gradient), (x,), (torch.ones_like(x),)
+        )
+        return tangent
+
+    def likelihood(self, x, stop_gradient_density: bool = False):
         """P(x - .5 < X <= x + .5), channels-last: a sign-stabilized
         difference of sigmoids, both ends evaluated in whichever tail keeps
         the subtraction well-conditioned."""
         flat = _channels_to_front(x)
-        lo = self._logits_cdf(flat - 0.5)
-        up = self._logits_cdf(flat + 0.5)
+        lo = self._logits_cdf(flat - 0.5, stop_gradient_density)
+        up = self._logits_cdf(flat + 0.5, stop_gradient_density)
         sign = -torch.sign(lo + up).detach()
         lik = torch.abs(torch.sigmoid(sign * up) - torch.sigmoid(sign * lo))
         return _channels_to_back(lik, x.shape)
@@ -84,3 +104,73 @@ class FactorizedEntropyModel(nn.Module):
         """Median-centered rounding ('dequantize' semantics)."""
         medians = self.medians
         return torch.round(x - medians) + medians
+
+    # ------------------------------------------------------------- coding
+
+    @torch.no_grad()
+    def inverse_cdf(self, xi, doublings: int = 16, iterations: int = 60):
+        """Bisection inverse of the CDF: a fixed number of bracket doublings,
+        then a fixed number of bisections, as in nic_tpu."""
+
+        def f(v):
+            return self.cdf(v, stop_gradient=True) - xi
+
+        left = torch.full_like(xi, -1.0)
+        right = torch.full_like(xi, 1.0)
+        for _ in range(doublings):
+            left = torch.where(f(left) >= 0, left * 2.0, left)
+            right = torch.where(f(right) <= 0, right * 2.0, right)
+        for _ in range(iterations):
+            mid = 0.5 * (left + right)
+            fm = f(mid)
+            left = torch.where(fm < 0, mid, left)
+            right = torch.where(fm > 0, mid, right)
+        return 0.5 * (left + right)
+
+    @torch.no_grad()
+    def pmf_for_coding(self, max_length: int = 256, grid: str = "median"):
+        """Per-channel PMFs over grids covering the learned support, for the
+        quantized CDF tables (``coding/tables.py``).
+
+        grid='median': points median + k, the grid of ``quantize`` (symbols
+        round(x - median)); grid='integer': plain integers, the grid of
+        plainly rounded latents (what SGA transmits).
+
+        Returns (pmf (C, max_length), offsets (C,), lengths (C,), tail (C,)).
+        """
+        q = self.quantiles[:, 0, :]
+        medians = q[:, 1]
+        if grid == "median":
+            minima = torch.clamp(torch.ceil(medians - q[:, 0]).int(), min=0)
+            maxima = torch.clamp(torch.ceil(q[:, 2] - medians).int(), min=0)
+            lengths = torch.clamp(minima + maxima + 1, max=max_length)
+            offsets = -minima
+            base = medians[:, None]
+        elif grid == "integer":
+            lo = torch.floor(q[:, 0]).int()
+            hi = torch.ceil(q[:, 2]).int()
+            lengths = torch.clamp(hi - lo + 1, max=max_length)
+            offsets = lo
+            base = torch.zeros_like(medians)[:, None]
+        else:
+            raise ValueError(f"Unknown grid {grid!r}")
+        idx = torch.arange(max_length, device=q.device)[None, :]
+        points = base + offsets[:, None].float() + idx.float()
+        pmf = self.likelihood(points.T, stop_gradient_density=True).T
+        pmf = torch.where(idx < lengths[:, None], pmf, torch.zeros_like(pmf))
+        tail = torch.clamp(1.0 - torch.sum(pmf, dim=1), min=0.0)
+        return pmf, offsets, lengths, tail
+
+    @torch.no_grad()
+    def pmf_on_grid(self, lo: float, hi: float, delta: float):
+        """Per-channel bin probabilities over a uniform grid: bin k covers
+        [lo + k*delta, lo + (k+1)*delta), the tail mass outside [lo, hi]
+        folded into the edge bins. Returns (C, B), B = round((hi-lo)/delta).
+        """
+        num_bins = int(round((hi - lo) / delta))
+        device = self.quantiles.device
+        edges = lo + delta * torch.arange(1, num_bins, device=device)
+        cdf = self.cdf(edges[:, None].expand(-1, self.channels), stop_gradient=True)
+        ones = torch.ones((1, self.channels), device=device)
+        cdf = torch.cat([torch.zeros_like(ones), cdf, ones], dim=0)
+        return torch.diff(cdf, dim=0).T

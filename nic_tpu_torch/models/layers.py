@@ -28,6 +28,14 @@ def _same_pads(size: int, kernel: int, stride: int):
     return p // 2, p - p // 2
 
 
+def conv_transpose_up2(x, weight, bias=None):
+    """XLA's SAME 5x5 stride-2 transposed conv, NHWC in and out: ``weight``
+    is (in, out, 5, 5), spatially flipped (``SignalConv.weight_from_hwio``)."""
+    h, w = x.shape[1], x.shape[2]
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, bias, stride=2, padding=1)
+    return y.permute(0, 2, 3, 1)[:, : 2 * h, : 2 * w, :]
+
+
 class SignalConv(nn.Module):
     """2-D convolution with integer down- or up-sampling (NHWC in and out).
 
@@ -72,10 +80,7 @@ class SignalConv(nn.Module):
     def forward(self, x):
         n, h, w, _ = x.shape
         if self.transpose:
-            y = F.conv_transpose2d(
-                x.permute(0, 3, 1, 2), self.weight, self.bias, stride=2, padding=1
-            )
-            return y.permute(0, 2, 3, 1)[:, : 2 * h, : 2 * w, :]
+            return conv_transpose_up2(x, self.weight, self.bias)
         s, k = self.strides_down, self.kernel
         top, bottom = _same_pads(h, k, s)
         left, right = _same_pads(w, k, s)

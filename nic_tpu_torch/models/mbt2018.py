@@ -6,7 +6,8 @@
 
 The sub-passes are exposed one by one because the inference engine builds
 its own computation over the latents. All tensors are NHWC; the model runs
-in fp32. Only the evaluation forward is ported (training is later work).
+in fp32. The evaluation forward and the coding tables are ported (training
+is later work).
 """
 
 from typing import Dict
@@ -76,6 +77,12 @@ class MeanScaleHyperprior(nn.Module):
 
     def quantize_z(self, z):
         return self.entropy_bottleneck.quantize(z)
+
+    def medians(self):
+        return self.entropy_bottleneck.medians
+
+    def pmf_for_coding(self, max_length: int = 256, grid: str = "median"):
+        return self.entropy_bottleneck.pmf_for_coding(max_length, grid=grid)
 
     # -------------------------------------------------------------- forward
 

@@ -1,10 +1,15 @@
-"""Builds the port's CUDA kernels with nvcc at first use.
+"""Builds the port's native libraries at first use.
 
 Each ``csrc/*.cu`` source has a plain C interface and is compiled on its
-own into a shared library that ``ctypes`` loads: no PyTorch headers, no
-``torch.utils.cpp_extension``, no ninja. A build takes seconds. Libraries go
-to ``nic_tpu_torch/_build/`` (listed in .gitignore) and are rebuilt when the
-source is newer. A failed build raises with nvcc's output.
+own by nvcc into a shared library that ``ctypes`` loads: no PyTorch
+headers, no ``torch.utils.cpp_extension``, no ninja. A build takes seconds.
+``csrc/*.cpp`` sources are host code (the rANS coder) and are compiled by
+g++ the same way. Libraries go to ``nic_tpu_torch/_build/`` (listed in
+.gitignore), never beside their sources, and are rebuilt when the source is
+newer. A failed build raises with the compiler's output; the library is
+written under a temporary name and renamed into place, so a concurrent
+reader never loads half a file. ``build_libraries`` starts one compiler
+process per source, all together.
 """
 
 import os
@@ -17,6 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 
@@ -32,31 +38,59 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
 
 
-def build_library(source: str, force: bool = False) -> Path:
-    """Path to ``_build/libnic_<stem>.so`` built from ``csrc/<source>``.
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` goes: ``libnic_<stem>.so`` for
+    a CUDA source, ``lib<stem>.so`` for a host one."""
+    stem = Path(source).stem
+    name = f"lib{stem}.so" if source.endswith(".cpp") else f"libnic_{stem}.so"
+    return BUILD_DIR / name
 
-    Rebuilds when the library is missing, older than its source, or
-    ``force`` is set. nvcc's resource report (``-Xptxas -v``) is kept beside
-    the library as ``libnic_<stem>.log``.
+
+def _command(src: Path, out: Path):
+    if src.suffix == ".cpp":
+        return ["g++", *HOST_FLAGS, "-o", str(out), str(src)]
+    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
+
+
+def build_libraries(sources, force: bool = False) -> list:
+    """Paths to the libraries built from ``csrc/<source>`` for each source.
+
+    Rebuilds a library when it is missing, older than its source, or
+    ``force`` is set; the compilers of all the libraries to build run at
+    once. Each compiler's output (for nvcc, ptxas's resource report) is
+    kept beside its library as ``<library>.log``.
     """
-    src = CSRC_DIR / source
-    lib = BUILD_DIR / f"libnic_{src.stem}.so"
+    libs = [library_path(s) for s in sources]
     with _lock:
-        if (not force and lib.exists()
-                and lib.stat().st_mtime >= src.stat().st_mtime):
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        # Atomic rename: concurrent builders never load a half-written file.
-        os.replace(tmp, lib)
-    return lib
+        jobs = []
+        for source, lib in zip(sources, libs):
+            src = CSRC_DIR / source
+            if (not force and lib.exists()
+                    and lib.stat().st_mtime >= src.stat().st_mtime):
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = _command(src, tmp)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((lib, tmp, cmd, proc))
+        failures = []
+        for lib, tmp, cmd, proc in jobs:
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"{cmd[0]} failed to build {Path(cmd[-1]).name} "
+                                f"(exit {proc.returncode}):\n{' '.join(cmd)}\n{output}")
+                continue
+            lib.with_suffix(".log").write_text(output)
+            os.replace(tmp, lib)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    return libs
+
+
+def build_library(source: str, force: bool = False) -> Path:
+    """Path to the library built from ``csrc/<source>`` (see
+    ``build_libraries``)."""
+    return build_libraries([source], force)[0]

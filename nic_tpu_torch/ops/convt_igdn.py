@@ -1,0 +1,203 @@
+"""K2 on Hopper: fused 5x5 stride-2 transposed conv + bias + (I)GDN
+(``csrc/convt_igdn.cu``), its plain version, the composite it replaces, and
+``fused_synthesis_layer`` (kernel forward, composite backward).
+
+Replaces the Pallas TPU kernel of nic_tpu/ops/pallas_convt.py (``_kernel``
+through ``conv_transpose_igdn_up2``). Layouts are the JAX package's at every
+public function: x NHWC, w HWIO (5, 5, C, Co) un-flipped, as
+``lax.conv_transpose(x, w, (2, 2), "SAME")`` takes it.
+
+The transposed conv is four output-parity GEMMs (derivation in
+nic_tpu/models/layers.py): out[2i+r, 2j+t] = sum_{a,b} x[i-a, j-b] @
+wf[2a+r+1, 2b+t+1] with wf = w[::-1, ::-1], and 4/6/6/9 live taps for the
+parities (0,0)/(0,1)/(1,0)/(1,1). The CUDA source has a plain C interface,
+is built by ``ops/build.py`` with nvcc at first use and is called through
+ctypes on PyTorch's current stream.
+
+``launches`` counts the kernel's launches, so a run can show that its path
+went through the kernel.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from nic_tpu_torch.models.layers import conv_transpose_up2
+from nic_tpu_torch.ops.build import build_library
+from nic_tpu_torch.ops.gdn_cuda import gdn_reference
+
+launches = 0
+# The plain version pads rows to a multiple of nic_tpu's default row tile,
+# as the Pallas kernel does, and crops them after.
+ROW_TILE = 8
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library("convt_igdn.cu")))
+        lib.nic_convt_igdn_forward.argtypes = [
+            *([ctypes.c_void_p] * 6), *([ctypes.c_int] * 7), ctypes.c_void_p,
+        ]
+        lib.nic_convt_igdn_forward.restype = ctypes.c_int
+        lib.nic_convt_igdn_max_channels.argtypes = []
+        lib.nic_convt_igdn_max_channels.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def phase_taps(r: int, t: int):
+    """Tap offsets (a, b) of output parity (r, t), weight wf[2a+r+1, 2b+t+1]."""
+    a_taps = [a for a in (1, 0, -1) if 0 <= 2 * a + r + 1 < 5]
+    b_taps = [b for b in (1, 0, -1) if 0 <= 2 * b + t + 1 < 5]
+    return a_taps, b_taps
+
+
+def phase_weight_mats(w):
+    """Per-parity im2col weight matrices [taps*C, Co] of a (5, 5, C, Co)
+    kernel, taps a-major then b, parities in the order (0,0), (0,1), (1,0),
+    (1,1)."""
+    if tuple(w.shape[:2]) != (5, 5):
+        raise ValueError(f"w must be (5, 5, C, Co), got {tuple(w.shape)}")
+    wf = w.flip(0, 1)
+    mats = []
+    for r in range(2):
+        for t in range(2):
+            a_taps, b_taps = phase_taps(r, t)
+            mats.append(torch.cat(
+                [wf[2 * a + r + 1, 2 * b + t + 1] for a in a_taps for b in b_taps],
+                dim=0,
+            ))
+    return mats
+
+
+def conv_transpose_igdn_up2_reference(x, w, bias, beta, gamma, inverse=True):
+    """The composite K2 replaces: SAME transposed conv in x's dtype, + bias,
+    then (I)GDN with gamma rounded to the activation dtype (as
+    nic_tpu's reference does; the kernel keeps gamma in float32)."""
+    weight = w.to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)
+    y = conv_transpose_up2(x, weight)
+    y = y + bias.to(y.dtype)
+    return gdn_reference(y, beta, gamma.to(y.dtype), inverse)
+
+
+def conv_transpose_igdn_up2_plain(x, w, bias, beta, gamma, inverse=True):
+    """K2's own formulation in plain torch: pad 1 on every side (and rows up
+    to a multiple of ``ROW_TILE``), the four parity im2col matrices, four
+    float32 matmuls, + bias, (I)GDN with float32 gamma, parities interleaved,
+    rows cropped to 2H. x and w of one dtype in, x's dtype out."""
+    n, h, wd, c = x.shape
+    co = w.shape[3]
+    hp = -(-h // ROW_TILE) * ROW_TILE
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1 + hp - h))
+    mats = phase_weight_mats(w.to(x.dtype).float())
+    phases = []
+    for r in range(2):
+        for t in range(2):
+            a_taps, b_taps = phase_taps(r, t)
+            cols = [xp[:, 1 - a: 1 - a + hp, 1 - b: 1 - b + wd, :]
+                    for a in a_taps for b in b_taps]
+            xcat = torch.cat(cols, dim=-1).reshape(-1, len(cols) * c)
+            z = torch.matmul(xcat, mats[2 * r + t]) + bias.float()
+            z = gdn_reference(z, beta, gamma.float(), inverse)
+            phases.append(z.reshape(n, hp, wd, co))
+    y = torch.stack(phases, dim=3).reshape(n, hp, wd, 2, 2, co)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * hp, 2 * wd, co)
+    return y[:, : 2 * h].to(x.dtype)
+
+
+def convt_igdn_forward_kernel(x, w, bias, beta, gamma, inverse: bool):
+    """Launch K2: x (N, H, W, C) and w (5, 5, C, Co) of one dtype (float32
+    or bfloat16), bias and beta (Co,) and gamma (Co, Co) float32, all
+    contiguous on one CUDA device. Returns (N, 2H, 2W, Co) in x's dtype."""
+    global launches
+    if not x.is_cuda:
+        raise ValueError("convt_igdn_forward_kernel takes CUDA tensors")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"K2 takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
+    n, h, wd, c = x.shape
+    if w.dim() != 4 or tuple(w.shape[:3]) != (5, 5, c) or w.dtype != x.dtype:
+        raise ValueError(f"w must be (5, 5, {c}, Co) {x.dtype}, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    co = w.shape[3]
+    lib = _library()
+    if co > lib.nic_convt_igdn_max_channels():
+        raise ValueError(f"K2 takes at most {lib.nic_convt_igdn_max_channels()} "
+                         f"output channels, got {co}")
+    for name, t, shape in (("bias", bias, (co,)), ("beta", beta, (co,)),
+                           ("gamma", gamma, (co, co))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for name, t in (("x", x), ("w", w), ("bias", bias), ("beta", beta),
+                    ("gamma", gamma)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if 4 * n * h * wd * max(c, co) >= 2 ** 31:
+        raise ValueError("K2 takes tensors of fewer than 2^31 elements")
+    out = torch.empty((n, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.nic_convt_igdn_forward(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), beta.data_ptr(),
+            gamma.data_ptr(), out.data_ptr(), n, h, wd, c, co, int(inverse),
+            _DTYPE_CODES[x.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with cudaError {err}")
+    launches += 1
+    return out
+
+
+def conv_transpose_igdn_up2(x, w, bias, beta, gamma, inverse=True):
+    """Fused conv_transpose(5x5, stride 2, SAME) + bias + (I)GDN,
+    x [N,H,W,C] -> [N,2H,2W,Co]: K2 for a CUDA tensor (it launches or
+    raises), the plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return conv_transpose_igdn_up2_plain(x, w, bias, beta, gamma, inverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"K2 runs on cuda or cpu tensors, not {x.device}")
+    return convt_igdn_forward_kernel(
+        x.contiguous(), w.to(x.dtype).contiguous(), bias.float().contiguous(),
+        beta.float().contiguous(), gamma.float().contiguous(), inverse,
+    )
+
+
+class FusedSynthesisLayer(torch.autograd.Function):
+    """K2's forward; the backward is autograd through the composite,
+    recomputed from the saved inputs (nic_tpu's ``_fsl_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, beta, gamma, inverse):
+        ctx.save_for_backward(x, w, bias, beta, gamma)
+        ctx.inverse = inverse
+        return conv_transpose_igdn_up2(x, w, bias, beta, gamma, inverse)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        needed = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needed)]
+        wrt = [t for t, need in zip(inputs, needed) if need]
+        grads = iter(())
+        if wrt:
+            with torch.enable_grad():
+                y = conv_transpose_igdn_up2_reference(*inputs, inverse=ctx.inverse)
+            grads = iter(torch.autograd.grad(y, wrt, gy))
+        return (*(next(grads) if need else None for need in needed), None)
+
+
+def fused_synthesis_layer(x, w, bias, beta, gamma, inverse=True):
+    """K2 forward (plain version on the CPU) with the composite's gradients
+    for x, w, bias, beta and gamma."""
+    return FusedSynthesisLayer.apply(x, w, bias, beta, gamma, inverse)

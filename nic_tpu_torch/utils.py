@@ -35,6 +35,16 @@ def write_png(path: str, img: np.ndarray) -> None:
     Image.fromarray(quantize_image(img)).save(path, format="PNG")
 
 
+def convert_float_to_uint8(img: np.ndarray) -> np.ndarray:
+    """float [0,1] -> uint8 pixels with saturation."""
+    return quantize_image(img)
+
+
+def convert_uint8_to_float(img: np.ndarray) -> np.ndarray:
+    """uint8 pixels -> float [0,1]."""
+    return img.astype(np.float32) / 255.0
+
+
 def get_runname(
     args_dict: Dict,
     record_keys: Sequence[str] = ("num_filters", "num_hfilters", "lmbda", "last_step"),

@@ -105,15 +105,15 @@ def test_default_device_raises_without_a_card(workdir, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,script,before", [
-    ((), "mbt2018", ()),
+    (("--quant", "int8"), "mbt2018", ()),
     ((), "map", ()),
     ((), "bb_sga", ()),
-    (("out.ntc",), "sga", ()),
+    (("out.ntc", "--quant", "int8"), "sga", ()),
     (("--data_parallel",), "sga", ()),
     (("--spatial",), "sga", ()),
     (("--distortion", "msssim"), "sga", ()),
     (("--quant", "int8"), "sga", ()),
-    (("--save_reconstruction",), "sga", ()),
+    (("--save_reconstruction", "--unoise_mean_source", "noisy_z"), "sga", ()),
     ((), "sga", ("--verbose",)),
 ])
 def test_unported_parts_exit_nonzero(workdir, extra, script, before):
@@ -126,7 +126,7 @@ def test_unported_parts_exit_nonzero(workdir, extra, script, before):
 
 @pytest.mark.parametrize("argv", [
     ["sga", "train", "--train_glob", "x/*.png"],
-    ["sga", "decompress", "run", "in.ntc"],
+    ["bb_sga", "decompress", "run", "in.ntc"],
     ["learned_prior", "--num_channels", "4", "--data_path", "x.npy"],
 ])
 def test_unported_commands_exit_nonzero(argv):

@@ -4,9 +4,10 @@ Imports neither jax nor nic_tpu, so it runs where only torch is installed:
 
   python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a card every test skips. Tolerances, max-norm relative: float32
-1e-5 (fp32 accumulation in another order), bfloat16 2e-2 (output rounding;
-the plain version runs in fp32 on the same bf16 inputs).
+Without a card every test skips but the g++ build of the rANS coder, which
+needs no card. Tolerances, max-norm relative: float32 1e-5 (fp32
+accumulation in another order), bfloat16 2e-2 (output rounding; the plain
+version runs in fp32 on the same bf16 inputs).
 """
 
 import pytest
@@ -86,3 +87,133 @@ def test_gdn_kernel_refuses_what_it_does_not_take():
         gdn_cuda.gdn_forward_kernel(x.half(), gamma.half(), beta, False)
     with pytest.raises(ValueError, match="contiguous"):
         gdn_cuda.gdn_forward_kernel(x.t().contiguous().t(), gamma, beta, False)
+
+
+# K2, the fused transposed conv + (I)GDN, against its plain version. The
+# plain version runs K2's own formulation in float32 on the same inputs, so
+# float32 differs only in summation order (1e-5 max-norm relative) and
+# bfloat16 only in the output rounding (2e-2, the same few-ulp bound as K1).
+def _k2_inputs(shape, co, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, w, c = shape
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    wt = 0.05 * torch.randn(5, 5, c, co, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(co, device="cuda", generator=gen)
+    beta = 0.5 + torch.rand(co, device="cuda", generator=gen)
+    gamma = 0.05 * torch.rand(co, co, device="cuda", generator=gen)
+    return x, wt, bias, beta, gamma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,co", [((2, 16, 24, 192), 192), ((3, 13, 9, 192), 192),
+                                      ((1, 7, 5, 40), 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [True, False])
+def test_convt_igdn_kernel_matches_plain_version(shape, co, dtype, inverse):
+    _need_card()
+    from nic_tpu_torch.ops import convt_igdn
+
+    x, w, bias, beta, gamma = _k2_inputs(shape, co, seed=2)
+    x, w = x.to(dtype), w.to(dtype)
+    before = convt_igdn.launches
+    out = convt_igdn.conv_transpose_igdn_up2(x, w, bias, beta, gamma, inverse)
+    assert convt_igdn.launches == before + 1
+    ref = convt_igdn.conv_transpose_igdn_up2_plain(x, w, bias, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    n, h, wd, _ = shape
+    assert out.shape == ref.shape == (n, 2 * h, 2 * wd, co) and out.dtype == dtype
+    assert _rel(out, ref) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_synthesis_layer_backward_on_the_card(dtype):
+    """The kernel's forward with the composite's gradients: every gradient
+    equals the composite's own autograd (it is the same computation), and
+    the forward agrees with the composite (bfloat16: the composite also
+    rounds gamma and the conv output to bfloat16); cuDNN's backward may sum
+    in another order from call to call, hence the same tolerances as the
+    forward."""
+    _need_card()
+    from nic_tpu_torch import config
+    from nic_tpu_torch.ops import convt_igdn
+
+    config.set_fp32_precision()  # the composite's cuDNN conv in full fp32
+    x, w, bias, beta, gamma = _k2_inputs((2, 9, 11, 64), 64, seed=3)
+    x = x.to(dtype)
+    args = [t.clone().requires_grad_(True) for t in (x, w, bias, beta, gamma)]
+    ref_args = [t.clone().requires_grad_(True) for t in (x, w, bias, beta, gamma)]
+    out = convt_igdn.fused_synthesis_layer(*args)
+    ref = convt_igdn.conv_transpose_igdn_up2_reference(*ref_args)
+    g = torch.randn(out.shape, device="cuda").to(dtype)
+    grads = torch.autograd.grad(out, args, g)
+    ref_grads = torch.autograd.grad(ref, ref_args, g)
+    assert _rel(out, ref) <= {torch.float32: 1e-5, torch.bfloat16: 3e-2}[dtype]
+    for got, want in zip(grads, ref_grads):
+        assert got.dtype == want.dtype
+        assert _rel(got, want) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_convt_igdn_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    from nic_tpu_torch.ops import convt_igdn
+
+    x, w, bias, beta, gamma = _k2_inputs((1, 4, 4, 16), 200, seed=4)
+    with pytest.raises(ValueError, match="at most"):
+        convt_igdn.convt_igdn_forward_kernel(x, w, bias, beta, gamma, True)
+    x, w, bias, beta, gamma = _k2_inputs((1, 4, 4, 16), 16, seed=4)
+    with pytest.raises(TypeError):
+        convt_igdn.convt_igdn_forward_kernel(x.half(), w.half(), bias, beta, gamma, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        convt_igdn.convt_igdn_forward_kernel(
+            x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3), w, bias, beta,
+            gamma, True)
+    with pytest.raises(ValueError, match="w must be"):
+        convt_igdn.convt_igdn_forward_kernel(x, w.bfloat16(), bias, beta, gamma, True)
+
+
+def test_rans_library_builds_with_gxx_into_the_build_directory():
+    """The host route of ops/build.py: g++ builds csrc/rans.cpp into _build/
+    (runs wherever g++ is, card or not), and this build leaves no temporary
+    file behind (other processes, such as other test workers, may be building
+    the same library at the same time under their own temporary names)."""
+    import os
+    import shutil
+
+    from nic_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR, build_library
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    lib = build_library("rans.cpp", force=True)
+    assert lib == BUILD_DIR / "librans.so" and lib.exists()
+    assert not (CSRC_DIR / "librans.so").exists()
+    assert not any(p.name.endswith(f".{os.getpid()}.tmp") for p in BUILD_DIR.iterdir())
+    assert os.access(lib, os.R_OK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel", [False, True])
+def test_codec_roundtrip_on_the_card(parallel):
+    """HyperpriorCodec on the card: a 64x64 crop of the photos through the
+    committed nf=192 checkpoint decodes exactly to the compress side's
+    pixels, which are the eval forward's reconstruction PNG-quantized."""
+    _need_card()
+    import os
+
+    import numpy as np
+
+    from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.coding.codec import HyperpriorCodec
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    _, model = load_model(os.path.join(root, "checkpoints_synth3"),
+                          "mbt2018-num_filters=192-lmbda=0.01", 192, "cuda")
+    x = np.load(os.path.join(root, "data_real", "eval_photos.npy"))[:2, 100:164, 200:264]
+    x = x.astype(np.float32) / 255.0
+    codec = HyperpriorCodec(model, "cuda")
+    blob, out = codec.compress(x, parallel=parallel)
+    x_hat = codec.decompress(blob)
+    np.testing.assert_array_equal(np.round(x_hat * 255.0).astype(np.uint8), out["pixels"])
+    ref = np.clip(out["x_tilde"].cpu().numpy(), 0.0, 1.0)
+    assert np.abs(x_hat - ref).max() <= 0.5 / 255.0 + 1e-6
