@@ -9,8 +9,9 @@ Phases, each printed with its elapsed seconds:
                the rANS coder (csrc/rans.cpp), the three compilers started
                together;
   3. K1      - kernel against its plain PyTorch version (GDN and IGDN, float32
-               and bfloat16, forward and dx) and its timings beside its bound,
-               the plain version and cuBLAS's addmm;
+               and bfloat16, forward and dx) and its timings, float32 and
+               bfloat16 at the main path's three shapes, beside its bound, the
+               plain version and cuBLAS's addmm;
   4. amortized - the fp32 amortized forward of the lambda=0.01 MBT2018
                checkpoint on data_real/eval_photos.npy against nic_tpu's
                numbers, and the card against the port's own CPU run on a crop;
@@ -21,13 +22,17 @@ Phases, each printed with its elapsed seconds:
                the real g_s layers (fed the photos' activations), an odd shape
                and the inputs of ``exp_fused_convt bench``, float32 and
                bfloat16, GDN and IGDN; against the model's
-               own layer; fused_synthesis_layer's dx; timings beside its bound,
-               the plain version and cuDNN's conv_transpose2d; then its path,
+               own layer; fused_synthesis_layer's dx; timings (float32 and
+               bfloat16 at the three real layers, float32 at the JAX bench's
+               shapes) beside its bound, the plain version and cuDNN's
+               conv_transpose2d; then its path,
                ``exp_fused_convt bench`` and a fused_synthesis_layer step, with
                K2's launches counted from zero;
   7. bitstreams - ``mbt2018 compress`` of the photos to a file and
                ``mbt2018 decompress`` of it: exact, actual bpp beside nic_tpu's,
                K1's launches counted from zero on each.
+Both kernels run on the tensor cores; their bounds count three TF32 products
+for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
 measurements (``paths``), nvidia-smi's line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero, and with
@@ -101,9 +106,18 @@ K2_MODEL_RTOL = 1e-5
 K2_ODD_SHAPE = (2, 13, 9, 192)
 K2_BENCH_SHAPES = ((24, 48, 32, 192), (24, 96, 64, 192), (24, 192, 128, 192))
 
-# H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds.
+# H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds. Both kernels
+# run on the tensor cores: bf16 at 989 TFLOP/s dense; fp32 as 3xTF32, three
+# TF32 products (495 TFLOP/s) for each fp32-accurate product. The bound of
+# the earlier CUDA-core kernels, FLOPs at 67 TFLOP/s fp32, is printed beside.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; dense bf16
+PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+PRODUCTS_PER_FLOP = {"float32": 3, "bfloat16": 1}
+CUDA_CORE_FP32_FLOPS = 67e12
+BOUND_DEFINITION = (
+    "bound = max(bytes / 3.35 TB/s, P * FLOPs / peak): bfloat16 P = 1 at 989 TFLOP/s; "
+    "float32 (3xTF32) P = 3 at 495 TFLOP/s TF32 (for the earlier CUDA-core kernels: P = 1 "
+    "at 67 TFLOP/s, the CUDA cores' fp32, printed as bound_cuda_core_ms)")
 
 T0 = time.perf_counter()
 
@@ -133,13 +147,19 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(nbytes, flops, dtype):
+    """The bound and what sets it, and the bound of the earlier CUDA-core
+    kernels (fp32 FLOPs at 67 TFLOP/s; None for bf16)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = PRODUCTS_PER_FLOP[dtype] * flops / PEAK_FLOPS[dtype] * 1e3
+    old = max(t_bytes, flops / CUDA_CORE_FP32_FLOPS * 1e3) if dtype == "float32" else None
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), old
+
+
 def k1_bound_ms(rows, dtype):
     size = 4 if dtype == "float32" else 2
     nbytes = (2 * rows * CHANNELS + CHANNELS * CHANNELS) * size + CHANNELS * 4
-    flops = 2 * rows * CHANNELS * CHANNELS
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, 2 * rows * CHANNELS * CHANNELS, dtype)
 
 
 def k1_inputs(rows, generator):
@@ -195,7 +215,7 @@ def time_k1():
     from nic_tpu_torch.ops.gdn_cuda import gdn_forward_kernel, gdn_reference
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows_list = [(r, "float32") for r in GS_ROWS] + [(GS_ROWS[-1], "bfloat16")]
+    rows_list = [(r, d) for d in ("float32", "bfloat16") for r in GS_ROWS]
     table = []
     for rows, dtype in rows_list:
         dt = getattr(torch, dtype)
@@ -206,14 +226,14 @@ def time_k1():
             ms = time_ms(lambda: gdn_forward_kernel(x, gamma, beta, True))
             plain_ms = time_ms(lambda: gdn_reference(x, beta, gamma, True))
             library_ms = time_ms(lambda: torch.addmm(beta.to(dt), xsq, gamma))
-        bound_ms, bound_by = k1_bound_ms(rows, dtype)
-        row = dict(rows=rows, dtype=dtype, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        bound, bound_by, bound_old = k1_bound_ms(rows, dtype)
+        row = dict(rows=rows, dtype=dtype, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, library_ms=library_ms, bound_cuda_core_ms=bound_old)
         table.append(row)
+        old = "" if bound_old is None else f", CUDA-core fp32 bound {bound_old:.4f} ms"
         log(f"K1 IGDN M={rows} C={CHANNELS} {dtype}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, addmm(beta, x^2, gamma) [cuBLAS] {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {HBM_BYTES_PER_S / 1e12:g} TB/s, "
-            f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s {dtype})")
+            f"bound {bound:.4f} ms ({bound_by}){old}")
     return table
 
 
@@ -387,9 +407,7 @@ def k2_bound_ms(shape, dtype, co=CHANNELS):
     size = 4 if dtype == "float32" else 2
     nbytes = (n * h * w * c + 4 * n * h * w * co + 25 * c * co) * size + (co * co + 2 * co) * 4
     flops = 2 * n * h * w * 25 * c * co + 2 * n * 4 * h * w * co * co
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, flops, dtype)
 
 
 def gs_layers(model_cpu):
@@ -481,16 +499,17 @@ def check_k2(layers):
 
 def time_k2(layers):
     """K2, its plain version and cuDNN's conv_transpose2d alone, at the main
-    path's g_s shapes (float32, and bfloat16 at the largest) and the JAX
-    bench's shapes at N = 24 (float32)."""
+    path's g_s shapes (float32 and bfloat16) and the JAX bench's shapes at
+    N = 24 (float32). ``ms`` is the kernel on weights packed beforehand
+    (``pack_weights``, ``pack_gamma``: once per set of weights);
+    ``wrapper_ms`` the wrapper that packs them on every call."""
     import torch
     import torch.nn.functional as F
 
     from nic_tpu_torch.ops import convt_igdn
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = [(l["x"], l, "float32") for l in layers]
-    cases.append((layers[-1]["x"], layers[-1], "bfloat16"))
+    cases = [(l["x"], l, d) for d in ("float32", "bfloat16") for l in layers]
     for shape in K2_BENCH_SHAPES:
         x = torch.randn(*shape, device="cuda", generator=gen)
         cases.append((x, layers[0], "float32"))
@@ -502,20 +521,24 @@ def time_k2(layers):
         # cuDNN's transposed conv alone, as the port's SignalConv calls it.
         weight = w.flip(0, 1).permute(2, 3, 0, 1).contiguous()
         x_nchw = x.permute(0, 3, 1, 2)
+        packed = (x, convt_igdn.pack_weights(w, dt), p["bias"], p["beta"],
+                  convt_igdn.pack_gamma(p["gamma"], dt), w.shape[3], True)
         with torch.no_grad():
-            ms = time_ms(lambda: convt_igdn.convt_igdn_forward_kernel(*args))
+            ms = time_ms(lambda: convt_igdn.convt_igdn_packed_forward(*packed))
+            wrapper_ms = time_ms(lambda: convt_igdn.convt_igdn_forward_kernel(*args))
             plain_ms = time_ms(lambda: convt_igdn.conv_transpose_igdn_up2_plain(*args))
             library_ms = time_ms(lambda: F.conv_transpose2d(
                 x_nchw, weight, p["bias"].to(dt), stride=2, padding=1))
         shape = tuple(x.shape)
-        bound_ms, bound_by = k2_bound_ms(shape, dtype)
+        bound, bound_by, bound_old = k2_bound_ms(shape, dtype)
         table.append(dict(shape=shape, dtype=dtype, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-        log(f"K2 IGDN {shape} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"conv_transpose2d [cuDNN] {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {HBM_BYTES_PER_S / 1e12:g} TB/s, "
-            f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s {dtype})")
-        del x, w, args, weight, x_nchw
+                          bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+                          wrapper_ms=wrapper_ms, bound_cuda_core_ms=bound_old))
+        old = "" if bound_old is None else f", CUDA-core fp32 bound {bound_old:.4f} ms"
+        log(f"K2 IGDN {shape} {dtype}: kernel {ms:.4f} ms (with packing {wrapper_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, conv_transpose2d [cuDNN] {library_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}){old}")
+        del x, w, args, packed, weight, x_nchw
         torch.cuda.empty_cache()
     return table
 
@@ -566,9 +589,17 @@ def build_all():
         f"took {time.perf_counter() - t:.2f} s")
     for source, lib in zip(sources, libs):
         log(f"build: {os.path.relpath(lib, ROOT)}")
+        # One line per kernel: its (mangled) name, registers and spills. The
+        # shared memory is dynamic, sized at launch (see each source).
+        entry, spills = None, ""
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: ptxas ({source}): {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill" in line:
+                spills = line.split(":", 1)[-1].strip()
+            elif "Used" in line and "registers" in line:
+                log(f"build: ptxas ({source}) {entry}: {line.split(':', 1)[-1].strip()}; "
+                    f"{spills}")
 
 
 def main():
@@ -590,6 +621,7 @@ def main():
         f"CUDA {torch.version.cuda}")
 
     build_all()
+    log(f"bounds: {BOUND_DEFINITION}")
 
     k1_max_abs = check_k1()
     k1_timings = time_k1()

@@ -5,10 +5,11 @@ own by nvcc into a shared library that ``ctypes`` loads: no PyTorch
 headers, no ``torch.utils.cpp_extension``, no ninja. A build takes seconds.
 ``csrc/*.cpp`` sources are host code (the rANS coder) and are compiled by
 g++ the same way. Libraries go to ``nic_tpu_torch/_build/`` (listed in
-.gitignore), never beside their sources, and are rebuilt when the source is
-newer. A failed build raises with the compiler's output; the library is
-written under a temporary name and renamed into place, so a concurrent
-reader never loads half a file. ``build_libraries`` starts one compiler
+.gitignore), never beside their sources, and are rebuilt when the source,
+or for a CUDA source one of the shared headers ``csrc/*.cuh``, is newer. A
+failed build raises with the compiler's output; the library is written
+under a temporary name and renamed into place, so a concurrent reader never
+loads half a file. ``build_libraries`` starts one compiler
 process per source, all together.
 """
 
@@ -53,22 +54,32 @@ def _command(src: Path, out: Path):
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
 
 
+def is_stale(source: str) -> bool:
+    """Whether the library of ``csrc/<source>`` is missing or older than its
+    source or, for a CUDA source, than any shared header ``csrc/*.cuh``."""
+    lib = library_path(source)
+    if not lib.exists():
+        return True
+    inputs = [CSRC_DIR / source]
+    if not source.endswith(".cpp"):
+        inputs += sorted(CSRC_DIR.glob("*.cuh"))
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
+
+
 def build_libraries(sources, force: bool = False) -> list:
     """Paths to the libraries built from ``csrc/<source>`` for each source.
 
-    Rebuilds a library when it is missing, older than its source, or
-    ``force`` is set; the compilers of all the libraries to build run at
-    once. Each compiler's output (for nvcc, ptxas's resource report) is
+    Rebuilds a library when ``is_stale`` says so or ``force`` is set; the
+    compilers of all the libraries to build run at once. Each compiler's output (for nvcc, ptxas's resource report) is
     kept beside its library as ``<library>.log``.
     """
     libs = [library_path(s) for s in sources]
     with _lock:
         jobs = []
         for source, lib in zip(sources, libs):
-            src = CSRC_DIR / source
-            if (not force and lib.exists()
-                    and lib.stat().st_mtime >= src.stat().st_mtime):
+            if not force and not is_stale(source):
                 continue
+            src = CSRC_DIR / source
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             cmd = _command(src, tmp)

@@ -10,9 +10,11 @@ public function: x NHWC, w HWIO (5, 5, C, Co) un-flipped, as
 The transposed conv is four output-parity GEMMs (derivation in
 nic_tpu/models/layers.py): out[2i+r, 2j+t] = sum_{a,b} x[i-a, j-b] @
 wf[2a+r+1, 2b+t+1] with wf = w[::-1, ::-1], and 4/6/6/9 live taps for the
-parities (0,0)/(0,1)/(1,0)/(1,1). The CUDA source has a plain C interface,
-is built by ``ops/build.py`` with nvcc at first use and is called through
-ctypes on PyTorch's current stream.
+parities (0,0)/(0,1)/(1,0)/(1,1). The kernel runs them on the tensor
+cores (bf16, or fp32 through 3xTF32) and reads its weights and gamma
+pre-packed by ``pack_weights`` and ``pack_gamma``. The CUDA source has a
+plain C interface, is built by ``ops/build.py`` with nvcc at first use and
+is called through ctypes on PyTorch's current stream.
 
 ``launches`` counts the kernel's launches, so a run can show that its path
 went through the kernel.
@@ -28,6 +30,12 @@ from nic_tpu_torch.ops.build import build_library
 from nic_tpu_torch.ops.gdn_cuda import gdn_reference
 
 launches = 0
+# K per pipeline stage of the kernel (64 bytes of each pixel's row): each
+# tap's C rows of the packed weights are zero-padded to a multiple of it.
+K_CHUNK = {torch.float32: 16, torch.bfloat16: 32}
+# The packed weights' and gamma's Co is zero-padded to a multiple of this
+# (4 warps x 16 columns of MMA tiles).
+CO_ALIGN = 64
 # The plain version pads rows to a multiple of nic_tpu's default row tile,
 # as the Pallas kernel does, and crops them after.
 ROW_TILE = 8
@@ -41,7 +49,7 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_library("convt_igdn.cu")))
         lib.nic_convt_igdn_forward.argtypes = [
-            *([ctypes.c_void_p] * 6), *([ctypes.c_int] * 7), ctypes.c_void_p,
+            *([ctypes.c_void_p] * 6), *([ctypes.c_int] * 9), ctypes.c_void_p,
         ]
         lib.nic_convt_igdn_forward.restype = ctypes.c_int
         lib.nic_convt_igdn_max_channels.argtypes = []
@@ -73,6 +81,31 @@ def phase_weight_mats(w):
                 dim=0,
             ))
     return mats
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pack_weights(w, dtype):
+    """K2's weight operand: the four parities' ``phase_weight_mats`` of a
+    (5, 5, C, Co) kernel, one after the other, with each tap's C rows
+    zero-padded to a multiple of ``K_CHUNK[dtype]`` and Co to a multiple of
+    ``CO_ALIGN``, in ``dtype``: a contiguous [25 * cpad, cop] matrix whose
+    K-chunks the kernel streams as rows."""
+    c, co = w.shape[2], w.shape[3]
+    cpad, cop = _round_up(c, K_CHUNK[dtype]), _round_up(co, CO_ALIGN)
+    wp = F.pad(w.to(dtype), (0, cop - co, 0, cpad - c))
+    return torch.cat(phase_weight_mats(wp), dim=0).contiguous()
+
+
+def pack_gamma(gamma, dtype):
+    """The normalizer's B operand: gamma (Co, Co) zero-padded to (cop, cop)
+    in ``dtype`` (bfloat16: rounded, as the bf16 route's normalizer GEMM
+    takes it)."""
+    co = gamma.shape[0]
+    cop = _round_up(co, CO_ALIGN)
+    return F.pad(gamma.float(), (0, cop - co, 0, cop - co)).to(dtype).contiguous()
 
 
 def conv_transpose_igdn_up2_reference(x, w, bias, beta, gamma, inverse=True):
@@ -112,31 +145,54 @@ def conv_transpose_igdn_up2_plain(x, w, bias, beta, gamma, inverse=True):
 
 def convt_igdn_forward_kernel(x, w, bias, beta, gamma, inverse: bool):
     """Launch K2: x (N, H, W, C) and w (5, 5, C, Co) of one dtype (float32
-    or bfloat16), bias and beta (Co,) and gamma (Co, Co) float32, all
-    contiguous on one CUDA device. Returns (N, 2H, 2W, Co) in x's dtype."""
-    global launches
+    or bfloat16), bias and beta (Co,) and gamma (Co, Co) float32, on one
+    CUDA device, x contiguous. Packs w and gamma (``pack_weights``,
+    ``pack_gamma``) and returns (N, 2H, 2W, Co) in x's dtype."""
     if not x.is_cuda:
         raise ValueError("convt_igdn_forward_kernel takes CUDA tensors")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"K2 takes float32 or bfloat16, not {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
-    n, h, wd, c = x.shape
+    c = x.shape[3]
     if w.dim() != 4 or tuple(w.shape[:3]) != (5, 5, c) or w.dtype != x.dtype:
         raise ValueError(f"w must be (5, 5, {c}, Co) {x.dtype}, got "
                          f"{tuple(w.shape)} {w.dtype}")
     co = w.shape[3]
+    if gamma.dtype != torch.float32 or tuple(gamma.shape) != (co, co):
+        raise ValueError(f"gamma must be ({co}, {co}) float32, got "
+                         f"{tuple(gamma.shape)} {gamma.dtype}")
+    # The packed launch checks the rest, devices and layouts included.
+    return convt_igdn_packed_forward(x, pack_weights(w, x.dtype), bias, beta,
+                                     pack_gamma(gamma, x.dtype), co, inverse)
+
+
+def convt_igdn_packed_forward(x, wp, bias, beta, gp, co: int, inverse: bool):
+    """Launch K2 on packed operands: x (N, H, W, C), ``wp = pack_weights(w,
+    x.dtype)``, bias and beta (Co,) float32, ``gp = pack_gamma(gamma,
+    x.dtype)``, all contiguous on x's CUDA device."""
+    global launches
+    if not x.is_cuda:
+        raise ValueError("convt_igdn_packed_forward takes CUDA tensors")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"K2 takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
+    n, h, wd, c = x.shape
     lib = _library()
     if co > lib.nic_convt_igdn_max_channels():
         raise ValueError(f"K2 takes at most {lib.nic_convt_igdn_max_channels()} "
                          f"output channels, got {co}")
-    for name, t, shape in (("bias", bias, (co,)), ("beta", beta, (co,)),
-                           ("gamma", gamma, (co, co))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape} float32, got "
+    cpad, cop = _round_up(c, K_CHUNK[x.dtype]), _round_up(co, CO_ALIGN)
+    for name, t, shape, dtype in (("packed w", wp, (25 * cpad, cop), x.dtype),
+                                  ("packed gamma", gp, (cop, cop), x.dtype),
+                                  ("bias", bias, (co,), torch.float32),
+                                  ("beta", beta, (co,), torch.float32)):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    for name, t in (("x", x), ("w", w), ("bias", bias), ("beta", beta),
-                    ("gamma", gamma)):
+    for name, t in (("x", x), ("packed w", wp), ("bias", bias), ("beta", beta),
+                    ("packed gamma", gp)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -149,8 +205,8 @@ def convt_igdn_forward_kernel(x, w, bias, beta, gamma, inverse: bool):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.nic_convt_igdn_forward(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), beta.data_ptr(),
-            gamma.data_ptr(), out.data_ptr(), n, h, wd, c, co, int(inverse),
+            x.data_ptr(), wp.data_ptr(), bias.data_ptr(), beta.data_ptr(),
+            gp.data_ptr(), out.data_ptr(), n, h, wd, c, cpad, co, cop, int(inverse),
             _DTYPE_CODES[x.dtype], stream,
         )
     if err != 0:

@@ -1,4 +1,5 @@
-"""K1 on Hopper: the fused GDN/IGDN kernel (``csrc/gdn.cu``) and its plain version.
+"""K1 on Hopper: the fused GDN/IGDN kernel (``csrc/gdn.cu``, on the tensor
+cores: bf16, or fp32 through 3xTF32) and its plain version.
 
 Replaces the Pallas TPU kernel of nic_tpu/ops/pallas_gdn.py (``_gdn_kernel``
 through ``gdn_pallas``). The CUDA source has a plain C interface, is built
@@ -43,11 +44,12 @@ def gdn_reference(x, beta, gamma, inverse: bool = False):
 
     y_j = x_j / sqrt(beta_j + sum_i gamma[i, j] * x_i^2)   (inverse: multiply)
 
-    gamma is rounded to x's dtype, as the kernel reads it; the normalizer and
-    the product run in fp32 whatever the activation dtype.
+    x^2 is rounded to x's dtype and gamma is rounded to x's dtype, as the
+    kernel and nic_tpu's ``_gdn_kernel`` (jnp.square) take them; the
+    normalizer and the product run in fp32 whatever the activation dtype.
     """
     xf = x.float()
-    norm = torch.matmul(xf * xf, gamma.to(x.dtype).float()) + beta.float()
+    norm = torch.matmul((x * x).float(), gamma.to(x.dtype).float()) + beta.float()
     scale = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
     return (xf * scale).to(x.dtype)
 

@@ -31,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 # Kernel-name fragments -> the layer they belong to (first match wins).
 CATEGORIES = (
-    ("K1 gdn kernel", ("gdn_rows_kernel",)),
+    ("K1 gdn kernel", ("gdn_tc_kernel",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad", "fprop", "nchw", "nhwc",
                               "winograd", "fft")),
     ("matmul (cuBLAS: GDN backward, entropy model)", ("gemm", "gemv", "cublas")),

@@ -26,11 +26,15 @@ from nic_tpu.ops.pallas_convt import conv_transpose_igdn_up2 as jax_kernel
 from nic_tpu.ops.pallas_convt import conv_transpose_igdn_up2_reference as jax_composite
 from nic_tpu_torch.ops import convt_igdn
 from nic_tpu_torch.tools import exp_fused_convt
+from tc_emulation import committed_gs_layers, convt_igdn_emulated
 
 torch.set_num_threads(1)
 
 F32_TOL = 2e-5
 GRAD_RTOL = 1e-4
+# The kernel against its plain version on the card (chip_smoke.py K2_RTOL,
+# tests/test_torch_cuda.py), max-norm relative.
+CARD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -170,3 +174,68 @@ def test_wrapper_refuses_other_devices(params):
         convt_igdn.conv_transpose_igdn_up2(args[0].to("meta"), *args[1:])
     with pytest.raises(ValueError, match="CUDA tensors"):
         convt_igdn.convt_igdn_forward_kernel(*args, True)
+
+
+def unpack_weights(packed, c, co):
+    """The four phase_weight_mats [taps * C, Co] back from pack_weights."""
+    cpad = -(-c // convt_igdn.K_CHUNK[packed.dtype]) * convt_igdn.K_CHUNK[packed.dtype]
+    mats, row = [], 0
+    for taps in (4, 6, 6, 9):
+        block = packed[row: row + taps * cpad].reshape(taps, cpad, -1)
+        mats.append(block[:, :c, :co].reshape(taps * c, co))
+        row += taps * cpad
+    return mats
+
+
+@pytest.mark.parametrize("c,co", [(8, 8), (40, 24), (192, 192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_packed_weights_unpack_to_nic_tpu_phase_weight_mats(c, co, dtype):
+    """K2's weight operand, packed and unpacked again, is nic_tpu's
+    phase_weight_mats of the same weights (in the route's dtype), and its
+    padding is zero."""
+    from nic_tpu.ops.pallas_convt import phase_weight_mats as jax_mats
+
+    w = np.random.default_rng(7).standard_normal((5, 5, c, co)).astype(np.float32)
+    packed = convt_igdn.pack_weights(torch.from_numpy(w), dtype)
+    cpad = -(-c // convt_igdn.K_CHUNK[dtype]) * convt_igdn.K_CHUNK[dtype]
+    cop = -(-co // convt_igdn.CO_ALIGN) * convt_igdn.CO_ALIGN
+    assert packed.shape == (25 * cpad, cop) and packed.dtype == dtype
+    assert packed.is_contiguous()
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    mats = unpack_weights(packed, c, co)
+    for got, want in zip(mats, jax_mats(jnp.asarray(w).astype(jdtype))):
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    # Every weight is nonzero, so the packing holds nothing else but zeros.
+    assert int(torch.count_nonzero(packed)) == 25 * c * co
+    assert sum(int(torch.count_nonzero(m)) for m in mats) == 25 * c * co
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_packed_gamma_is_zero_padded_in_the_route_dtype(dtype):
+    gamma = torch.from_numpy(np.random.default_rng(8).uniform(0, 0.1, (24, 24)).astype(np.float32))
+    packed = convt_igdn.pack_gamma(gamma, dtype)
+    assert packed.shape == (64, 64) and packed.dtype == dtype
+    assert torch.equal(packed[:24, :24], gamma.to(dtype))
+    assert not packed[24:].any() and not packed[:, 24:].any()
+
+
+@pytest.fixture(scope="module")
+def gs_layers():
+    return committed_gs_layers()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("inverse", [True, False], ids=["igdn", "gdn"])
+def test_kernel_rounding_within_card_tolerance_on_committed_gs(gs_layers, dtype, inverse):
+    """K2's operand rounding (bf16: x, w, z kept in bf16, and z*z and gamma
+    for the normalizer; fp32: both GEMMs in 3xTF32), emulated in plain torch at full
+    width (C = Co = 192, K up to 9 * 192) on the committed checkpoint's three
+    g_s layers, stays within the on-card tolerance of the plain version on
+    the same inputs."""
+    for layer in gs_layers:
+        args = (layer["x"].to(dtype), layer["w"].to(dtype), layer["bias"], layer["beta"],
+                layer["gamma"], inverse)
+        got = convt_igdn_emulated(*args)
+        ref = convt_igdn.conv_transpose_igdn_up2_plain(*args)
+        err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+        assert got.shape == ref.shape and err <= CARD_RTOL[dtype], (tuple(args[0].shape), err)

@@ -4,8 +4,9 @@ Imports neither jax nor nic_tpu, so it runs where only torch is installed:
 
   python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a card every test skips but the g++ build of the rANS coder, which
-needs no card. Tolerances, max-norm relative: float32 1e-5 (fp32
+Without a card every test skips but those of the build rules (the g++
+build of the rANS coder, the rebuild rule, the package data), which need no
+card. Tolerances, max-norm relative: float32 1e-5 (fp32
 accumulation in another order), bfloat16 2e-2 (output rounding; the plain
 version runs in fp32 on the same bf16 inputs).
 """
@@ -58,6 +59,41 @@ def test_gdn_kernel_matches_plain_version(rows, channels, dtype, inverse):
     torch.cuda.synchronize()
     assert _rel(out, ref) <= RTOL[dtype]
     assert _rel(dx, dx_ref) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [31, 33, 127, 129, 16897])
+@pytest.mark.parametrize("channels", [3, 16, 24, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_at_tile_edges(rows, channels, dtype, inverse):
+    """Rows at the edges of the kernel's row tiles (32 in fp32, 128 in bf16)
+    and more tiles than SMs (each persistent block takes several); C under,
+    at and over the 64-wide padding, rows of 6 bytes (staged element by
+    element) and C = 256 (two blocks along the columns)."""
+    _need_card()
+    x, beta, gamma, _ = _inputs(rows, channels, seed=rows + channels)
+    xk, gk = x.to(dtype), gamma.to(dtype)
+    out = gdn_cuda.gdn_forward_kernel(xk, gk, beta, inverse)
+    ref = gdn_cuda.gdn_reference(xk.float(), beta, gk.float(), inverse)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_kernel_on_a_view_off_16_byte_alignment(dtype):
+    """x one element past an aligned address: the kernel stages it element
+    by element instead of by 16-byte copies."""
+    _need_card()
+    x, beta, gamma, _ = _inputs(300, 192, seed=9)
+    buf = torch.empty(300 * 192 + 1, dtype=dtype, device="cuda")
+    xv = buf[1:].view(300, 192)
+    xv.copy_(x.to(dtype))
+    out = gdn_cuda.gdn_forward_kernel(xv, gamma.to(dtype), beta, True)
+    ref = gdn_cuda.gdn_reference(xv.float(), beta, gamma.to(dtype).float(), True)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= RTOL[dtype]
 
 
 @pytest.mark.cuda
@@ -126,6 +162,26 @@ def test_convt_igdn_kernel_matches_plain_version(shape, co, dtype, inverse):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,co", [((1, 8, 8, 32), 32), ((1, 9, 15, 24), 64),
+                                      ((1, 66, 65, 64), 64), ((1, 5, 6, 20), 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [True, False])
+def test_convt_igdn_kernel_at_tile_edges(shape, co, dtype, inverse):
+    """One whole 64-pixel tile; 135 pixels (ragged 64- and 128-pixel tiles);
+    a grid large enough for the 128-pixel blocks; rows of 40 bytes (bf16,
+    staged and stored element by element)."""
+    _need_card()
+    from nic_tpu_torch.ops import convt_igdn
+
+    x, w, bias, beta, gamma = _k2_inputs(shape, co, seed=11)
+    x, w = x.to(dtype), w.to(dtype)
+    out = convt_igdn.conv_transpose_igdn_up2(x, w, bias, beta, gamma, inverse)
+    ref = convt_igdn.conv_transpose_igdn_up2_plain(x, w, bias, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and _rel(out, ref) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_synthesis_layer_backward_on_the_card(dtype):
     """The kernel's forward with the composite's gradients: every gradient
@@ -190,6 +246,71 @@ def test_rans_library_builds_with_gxx_into_the_build_directory():
     assert not (CSRC_DIR / "librans.so").exists()
     assert not any(p.name.endswith(f".{os.getpid()}.tmp") for p in BUILD_DIR.iterdir())
     assert os.access(lib, os.R_OK)
+
+
+def test_build_staleness_covers_shared_headers(tmp_path, monkeypatch):
+    """A CUDA library is rebuilt when its source or any shared header
+    csrc/*.cuh is newer than it; a host (.cpp) library only for its source."""
+    import os
+
+    from nic_tpu_torch.ops import build
+
+    csrc, out = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    for name in ("k.cu", "tc_tile.cuh", "h.cpp"):
+        (csrc / name).write_text("")
+    assert build.is_stale("k.cu") and build.is_stale("h.cpp")  # nothing built yet
+    lib_cu, lib_cpp = build.library_path("k.cu"), build.library_path("h.cpp")
+
+    def at(path, t):
+        path.touch()
+        os.utime(path, (t, t))
+
+    for path in (csrc / "k.cu", csrc / "h.cpp", csrc / "tc_tile.cuh"):
+        at(path, 100)
+    at(lib_cu, 200)
+    at(lib_cpp, 200)
+    assert not build.is_stale("k.cu") and not build.is_stale("h.cpp")
+    at(csrc / "tc_tile.cuh", 300)
+    assert build.is_stale("k.cu") and not build.is_stale("h.cpp")
+    at(lib_cu, 400)
+    assert not build.is_stale("k.cu")
+    at(csrc / "k.cu", 500)
+    assert build.is_stale("k.cu")
+
+
+def test_kernel_variant_edits_match_the_sources():
+    """Every ablation of tools/kernel_variants.py edits the current sources
+    (an edit whose text is gone would make the tool fail on the card)."""
+    from nic_tpu_torch.ops.build import CSRC_DIR
+    from nic_tpu_torch.tools import kernel_variants
+
+    base = {p.name: p.read_text() for p in CSRC_DIR.iterdir() if p.is_file()}
+    for variant, edits in kernel_variants.VARIANTS.items():
+        texts = kernel_variants.edited_sources(edits)
+        assert (texts == base) == (variant == "base"), variant
+        assert kernel_variants.sources_of(variant), variant
+
+
+def test_package_data_ships_every_kernel_source():
+    """pyproject.toml's package data names every file under csrc/, shared
+    headers included, so an installed package can build its kernels."""
+    import fnmatch
+    import os
+    import tomllib
+
+    from nic_tpu_torch.ops.build import CSRC_DIR
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"]["nic_tpu_torch"]
+    names = sorted(p.name for p in CSRC_DIR.iterdir() if p.is_file())
+    assert any(n.endswith(".cuh") for n in names)
+    for name in names:
+        assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in patterns), name
 
 
 @pytest.mark.cuda

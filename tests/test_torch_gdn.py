@@ -18,12 +18,16 @@ from nic_tpu.ops.gdn import gdn as jax_gdn
 from nic_tpu.ops.pallas_gdn import gdn_pallas
 from nic_tpu_torch.ops import gdn_cuda
 from nic_tpu_torch.ops.gdn import gdn, gdn_reference
+from tc_emulation import committed_gs_layers, gdn_emulated, split_tf32, tf32_rna
 
 torch.set_num_threads(1)
 
 VALUE_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 BF16_RTOL = 2e-2
+# The kernel against its plain version on the card (chip_smoke.py K1_RTOL,
+# tests/test_torch_cuda.py), max-norm relative.
+CARD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def assert_rel(actual, expected, rtol):
@@ -131,3 +135,56 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, beta, gamma = (torch.tensor(a) for a in make_inputs((9, 8)))
     with pytest.raises(ValueError, match="CUDA"):
         gdn_cuda.gdn_forward_kernel(x, gamma, beta, False)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_reference_bf16_squares_x_in_bf16_as_the_pallas_kernel(inverse):
+    """gdn_reference's bfloat16 branch rounds x^2 to bfloat16 before the
+    fp32 product, as _gdn_kernel's jnp.square does (and the CUDA kernel)."""
+    x, beta, gamma = make_inputs((64, 16), seed=4)
+    xb = torch.tensor(x).bfloat16()
+    out = gdn_reference(xb, torch.tensor(beta), torch.tensor(gamma), inverse)
+    xsq = (xb * xb).float()
+    assert not torch.equal(xsq, xb.float() ** 2)  # the rounding is visible here
+    norm = xsq @ torch.tensor(gamma).bfloat16().float() + torch.tensor(beta)
+    scale = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
+    assert torch.equal(out, (xb.float() * scale).bfloat16())
+    ref = gdn_pallas(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(beta),
+                     jnp.asarray(gamma), inverse=inverse, interpret=True)
+    assert_rel(out.float(), np.asarray(ref, np.float32), BF16_RTOL)
+
+
+@pytest.mark.parametrize("round_hi,bound", [(True, 2.0 ** -22), (False, 2.0 ** -21)],
+                         ids=["rna", "truncated-hi"])
+def test_tf32_emulation_rounds_as_cvt_rna(round_hi, bound):
+    """tc_emulation's TF32 rounding: 10 mantissa bits, ties away from zero;
+    hi + lo within 2^-22 of v with hi rounded (K2), 2^-21 with hi truncated
+    (K1)."""
+    one_ulp = 2.0 ** -10
+    v = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 4, 3.0])
+    assert tf32_rna(v).tolist() == [1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 3.0]
+    x = torch.from_numpy(np.random.default_rng(6).normal(0, 3, 4096).astype(np.float32))
+    hi, lo = split_tf32(x, round_hi)
+    for part in (hi, lo):
+        assert not torch.any(part.view(torch.int32) & 0x1FFF)
+    assert float(((hi + lo - x).abs() / x.abs()).max()) <= bound
+
+
+@pytest.fixture(scope="module")
+def gs_layers():
+    return committed_gs_layers()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("inverse", [True, False], ids=["igdn", "gdn"])
+def test_kernel_rounding_within_card_tolerance_on_committed_gs(gs_layers, dtype, inverse):
+    """The kernel's operand rounding (bf16: x^2 and gamma in bf16; fp32:
+    3xTF32), emulated in plain torch at full width (C = 192) on the IGDN
+    inputs of the committed checkpoint's three g_s layers, stays within the
+    on-card tolerance of the plain version on the same inputs."""
+    for layer in gs_layers:
+        z = layer["z"].to(dtype)
+        got = gdn_emulated(z, layer["beta"], layer["gamma"], inverse)
+        ref = gdn_reference(z.float(), layer["beta"], layer["gamma"].to(dtype).float(), inverse)
+        err = float((got.float() - ref).abs().max() / ref.abs().max())
+        assert err <= CARD_RTOL[dtype], (tuple(z.shape), err)
