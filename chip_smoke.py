@@ -30,7 +30,19 @@ Phases, each printed with its elapsed seconds:
                K2's launches counted from zero;
   7. bitstreams - ``mbt2018 compress`` of the photos to a file and
                ``mbt2018 decompress`` of it: exact, actual bpp beside nic_tpu's,
-               K1's launches counted from zero on each.
+               K1's launches counted from zero on each;
+  8. bf16 amortized - the bf16 model (``compute_dtype=torch.bfloat16``, the
+               main path's dtype) on the photos against nic_tpu's bf16 numbers
+               with its Pallas GDN, and K1's bf16 route held against its plain
+               version on the inputs of every GDN and IGDN of g_a and g_s;
+  9. bf16 sga - 2000 SGA steps on the bf16 model through LatentOptimizer (the
+               route of nic_tpu's bench), K1's launches counted from zero, ms
+               per step beside phase 5's fp32 figure;
+ 10. methods - ``map``, ``ste``, ``unoise`` and ``danneal compress`` through the
+               CLI (fp32) at the specs' own iteration counts, K1's launches
+               counted from zero on each; unoise's and danneal's streams decode
+               exactly, map writes none; and the first 20 steps of each method
+               on a 64x64 crop, the card against the port's CPU path.
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -83,6 +95,32 @@ PSNR_ATOL_DB = 0.05
 # nic_tpu's SGA record for this checkpoint (bf16 transforms, 2000 steps),
 # results/photos_synth3/rd_curve.json; printed beside the port's, not held.
 JAX_SGA_RECORD = dict(est_bpp=0.5141, psnr=30.52)
+# nic_tpu's bf16 amortized eval with its Pallas GDN (K1's semantics), on the
+# CPU:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, jax.numpy as jnp; \
+#     from nic_tpu.train.trainer import TrainConfig, Trainer; \
+#     from nic_tpu.models.mbt2018 import MeanScaleHyperprior; \
+#     from nic_tpu.infer.engine import LatentOptimizer; \
+#     tr = Trainer(TrainConfig(num_filters=192, checkpoint_dir='checkpoints_synth3', \
+#                              runname='mbt2018-num_filters=192-lmbda=0.01')); \
+#     _, p = tr.restore_params_only(); \
+#     m = MeanScaleHyperprior(192, compute_dtype=jnp.bfloat16, use_pallas_gdn=True); \
+#     x = np.load('data_real/eval_photos.npy').astype(np.float32) / 255.0; \
+#     r = LatentOptimizer(m, p).eval_amortized(x); \
+#     print(float(r['est_bpp'].mean()), float(r['psnr'].mean()))"
+# Held with the fp32 limits (BPP_RTOL, PSNR_ATOL_DB): bf16 sums rounded in
+# another order flip a few roundings of y and z, each worth a few bits.
+JAX_BF16_AMORTIZED_BPP = 0.5311458706855774
+JAX_BF16_AMORTIZED_PSNR = 29.18467140197754
+# The four other methods, run by the CLI at their specs' own iteration
+# counts (map and ste stop early).
+METHODS = ("map", "ste", "unoise", "danneal")
+# Each method's first steps on a 64x64 crop, the card against the port's CPU
+# path (fp32; unoise fed the same uniform draws on both): the loss of every
+# step, max-norm relative. fp32 sums in another order, carried through
+# METHOD_STEPS Adam steps.
+METHOD_STEPS = 20
+METHOD_LOSS_RTOL = 1e-3
 
 # K1 against its plain version, max-norm relative: fp32 accumulation in
 # another order (float32); bf16 output rounding, plain version in fp32 on
@@ -308,7 +346,7 @@ def run_main_path(amortized, workdir):
             raise AssertionError(f"sga compress: {k} is not finite")
     if not any(f.startswith("rd-sga-") for f in written):
         raise AssertionError(f"sga compress wrote no rd-sga-*.npz: {written}")
-    ms_step = out["loop_ms"][0] / SGA_ITS
+    ms_step = out["loop_ms"][0] / out["steps"][0]
     rd_opt = float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
     rd_base = float(LMBDA * amortized["mse"].mean() + amortized["est_bpp"].mean())
     log(f"sga compress: {SGA_ITS} steps, {out['loop_ms'][0]:.1f} ms on the card "
@@ -569,6 +607,206 @@ def run_k2_path(layers):
     return launches, dict(bench, k2_launches=launches)
 
 
+def gdn_inputs(model, x):
+    """(name, x, beta, gamma, inverse) at every GDN and IGDN of g_a and g_s,
+    recorded by hooks during one forward of ``model`` on ``x``."""
+    import torch
+
+    from nic_tpu_torch.models.layers import GDN
+
+    seen, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, GDN):
+            def hook(module, args, name=name):
+                beta, gamma = module.effective_params()
+                seen.append((name, args[0].to(module.dtype), beta, gamma, module.inverse))
+            hooks.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def check_bf16_amortized(model_bf16_cpu):
+    """The bf16 amortized eval on the card against nic_tpu's bf16 numbers,
+    and K1's bf16 route against its plain version on the model's own GDN
+    inputs. Returns the card's metrics and the largest error of K1 there."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.ops.gdn_cuda import gdn_kernel, gdn_reference
+
+    x = np.load(PHOTOS).astype(np.float32) / 255.0
+    card = LatentOptimizer(copy.deepcopy(model_bf16_cpu), "cuda")
+    res = card.eval_amortized(x)
+    bpp, psnr = float(res["est_bpp"].mean()), float(res["psnr"].mean())
+    d_bpp = abs(bpp - JAX_BF16_AMORTIZED_BPP) / JAX_BF16_AMORTIZED_BPP
+    d_psnr = abs(psnr - JAX_BF16_AMORTIZED_PSNR)
+    log(f"amortized bf16 on the card: est bpp {bpp!r} (nic_tpu bf16 CPU "
+        f"{JAX_BF16_AMORTIZED_BPP!r}, rel diff {d_bpp:.2e}, tolerance {BPP_RTOL:g}), PSNR "
+        f"{psnr!r} dB (nic_tpu bf16 CPU {JAX_BF16_AMORTIZED_PSNR!r}, diff {d_psnr:.2e} dB, "
+        f"tolerance {PSNR_ATOL_DB:g}), MS-SSIM {float(res['msssim'].mean())!r}")
+    if not (d_bpp <= BPP_RTOL and d_psnr <= PSNR_ATOL_DB):
+        raise AssertionError("bf16 amortized forward disagrees with nic_tpu")
+    for k in ("est_bpp", "psnr", "mse", "msssim"):
+        if not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"bf16 amortized {k} is not finite")
+
+    errs = {}
+    with torch.no_grad():
+        for name, xg, beta, gamma, inverse in gdn_inputs(
+                card.model, torch.from_numpy(x).to("cuda")):
+            if xg.dtype != torch.bfloat16:
+                raise AssertionError(f"{name} ran in {xg.dtype}, not bfloat16")
+            out = gdn_kernel(xg, beta, gamma, inverse)
+            ref = gdn_reference(xg, beta, gamma, inverse)
+            torch.cuda.synchronize()
+            errs[name] = (rel_err(out, ref), float((out.float() - ref.float()).abs().max()),
+                          tuple(xg.shape))
+    for name, (err, _, shape) in errs.items():
+        log(f"K1 bf16 on the model's {name} {shape}: rel err {err:.3e} vs plain "
+            f"(tolerance {K1_RTOL['bfloat16']:g})")
+    if len(errs) != 6 or not all(e <= K1_RTOL["bfloat16"] for e, _, _ in errs.values()):
+        raise AssertionError("K1's bf16 route disagrees with its plain version on the model")
+    return res, max(a for _, a, _ in errs.values())
+
+
+def run_bf16_sga(model_bf16_cpu, amortized_bf16, fp32_ms_step):
+    """2000 SGA steps on the bf16 model, nic_tpu bench's route, with K1's
+    launches counted from zero."""
+    import numpy as np
+
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.ops import gdn_cuda
+
+    x = np.load(PHOTOS).astype(np.float32) / 255.0
+    opt = LatentOptimizer(copy.deepcopy(model_bf16_cpu), "cuda")
+    gdn_cuda.launches = 0
+    res = opt.optimize(x, LMBDA, method=SGA.replace(iterations=SGA_ITS), seed=0)
+    launches = gdn_cuda.launches
+    steps, loop_ms = opt.last_timing["steps"], opt.last_timing["loop_ms"]
+    ms_step = loop_ms / steps
+    rd_opt = float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
+    rd_base = float(LMBDA * amortized_bf16["mse"].mean() + amortized_bf16["est_bpp"].mean())
+    log(f"bf16 sga: {steps} steps in {loop_ms:.1f} ms (CUDA events) = {ms_step:.3f} "
+        f"ms/step, fp32 {fp32_ms_step:.3f} ms/step in this call; K1 launches {launches} "
+        f"(>= {3 * SGA_ITS} required)")
+    log(f"bf16 sga: est bpp {float(res['est_bpp'].mean())!r}, PSNR "
+        f"{float(res['psnr'].mean())!r} dB, MS-SSIM {float(res['msssim'].mean())!r} "
+        f"(nic_tpu's bf16 record {JAX_SGA_RECORD['est_bpp']} bpp, "
+        f"{JAX_SGA_RECORD['psnr']} dB); rounded RD objective {rd_opt!r} vs bf16 "
+        f"amortized {rd_base!r}")
+    for k in ("est_bpp", "psnr", "mse", "msssim", "losses"):
+        if not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"bf16 sga: {k} is not finite")
+    if steps != SGA_ITS or launches < 3 * SGA_ITS:
+        raise AssertionError(f"bf16 sga ran {steps} steps with {launches} K1 launches")
+    if not rd_opt < rd_base:
+        raise AssertionError("bf16 SGA did not lower the RD objective below amortized")
+    return launches, dict(ms_per_step=ms_step, fp32_ms_per_step=fp32_ms_step, steps=steps,
+                          k1_launches=launches, est_bpp=float(res["est_bpp"].mean()),
+                          psnr=float(res["psnr"].mean()), rd_objective=rd_opt,
+                          rd_objective_amortized=rd_base)
+
+
+def run_methods(amortized, workdir):
+    """map, ste, unoise and danneal compress through the CLI at their specs'
+    own iteration counts, K1's launches counted from zero on each. unoise
+    (quantized-z mean) and danneal write streams that decompress exactly;
+    map names an output file and writes none."""
+    import numpy as np
+
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    rd_base = float(LMBDA * amortized["mse"].mean() + amortized["est_bpp"].mean())
+    paths = {}
+    for script in METHODS:
+        common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, script]
+        stream = os.path.join(workdir, f"photos_{script}.ntc")
+        argv = common + ["compress", RUN, PHOTOS, "--results_dir",
+                         os.path.join(workdir, f"results_{script}")]
+        if script != "ste":
+            argv.insert(len(common) + 3, stream)
+        gdn_cuda.launches = 0
+        out = cli_main(argv)
+        launches = gdn_cuda.launches
+        res = out["results"]
+        steps, loop_ms = out["steps"][0], out["loop_ms"][0]
+        rd = float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
+        log(f"{script} compress: {steps} steps in {loop_ms:.1f} ms = "
+            f"{loop_ms / steps:.3f} ms/step; K1 launches {launches}; est bpp "
+            f"{float(res['est_bpp'].mean())!r}, PSNR {float(res['psnr'].mean())!r} dB, "
+            f"MS-SSIM {float(res['msssim'].mean())!r}; rounded RD objective {rd!r} vs "
+            f"amortized {rd_base!r}")
+        for k, v in res.items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"{script} compress: {k} is not finite")
+        if not 1 <= steps <= SGA_ITS or launches < 3 * steps:
+            raise AssertionError(f"{script} ran {steps} steps with {launches} K1 launches")
+        path = dict(steps=steps, ms_per_step=loop_ms / steps, k1_launches=launches,
+                    est_bpp=float(res["est_bpp"].mean()), psnr=float(res["psnr"].mean()),
+                    msssim=float(res["msssim"].mean()), rd_objective=rd,
+                    rd_objective_amortized=rd_base)
+        if script == "map":
+            if os.path.exists(stream) or "bytes" in out:
+                raise AssertionError("map compress wrote a stream no decoder can invert")
+            log("map compress: named an output file, wrote none (warned)")
+        elif script in ("unoise", "danneal"):
+            png = os.path.join(workdir, f"photos_{script}.png")
+            gdn_cuda.launches = 0
+            dec = cli_main(common + ["decompress", RUN, stream, png])
+            check_exact(script, dec, png, out["pixels"])
+            actual = out["bytes"] * 8 / (out["pixels"].size // 3)
+            log(f"{script} decompress: exact; {out['bytes']} bytes = {actual!r} bpp actual; "
+                f"K1 launches on decode {gdn_cuda.launches}")
+            path.update(actual_bpp=actual, k1_launches_decode=gdn_cuda.launches)
+        paths[script] = path
+    return paths
+
+
+def check_methods_card_vs_cpu(model_cpu):
+    """The first METHOD_STEPS steps of each method on a 64x64 crop, on the
+    card and on the port's CPU path (early stop off, so that every step's
+    loss is kept; unoise fed the same uniform draws on both)."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import get_method
+
+    x = np.load(PHOTOS)[:2, 100:164, 200:264].astype(np.float32) / 255.0
+    card = LatentOptimizer(copy.deepcopy(model_cpu), "cuda")
+    cpu = LatentOptimizer(model_cpu, "cpu")
+    rng = np.random.default_rng(0)
+    y0, z0 = cpu.amortized_init(x)
+    draws = {(it, name): torch.from_numpy(rng.uniform(-0.5, 0.5, v.shape).astype(np.float32))
+             for it in range(METHOD_STEPS) for name, v in (("y", y0), ("z", z0))}
+
+    def noise_fn(step, name, shape):
+        return draws[(step, name)]
+
+    errs = {}
+    for script in METHODS:
+        spec = get_method(script).replace(iterations=METHOD_STEPS, early_stop=False)
+        fn = noise_fn if script == "unoise" else None
+        r_g = card.optimize(x, LMBDA, method=spec, seed=0, noise_fn=fn)
+        r_c = cpu.optimize(x, LMBDA, method=spec, seed=0, noise_fn=fn)
+        err = float(np.max(np.abs(r_g["losses"] - r_c["losses"]) / np.abs(r_c["losses"])))
+        e_bpp = float(np.max(np.abs(r_g["est_bpp"] - r_c["est_bpp"]) / r_c["est_bpp"]))
+        errs[script] = err
+        log(f"{script}: first {METHOD_STEPS} steps on 64x64 crops, card vs CPU: loss rel "
+            f"err {err:.2e} (tolerance {METHOD_LOSS_RTOL:g}), est bpp rel diff {e_bpp:.2e}")
+        if not err <= METHOD_LOSS_RTOL:
+            raise AssertionError(f"{script}: the card's steps disagree with the CPU's")
+    return errs
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -646,6 +884,19 @@ def main():
 
         mbt2018_path = run_bitstreams(workdir)
         log("bitstreams done")
+
+        _, model_bf16 = load_model(CKPT_DIR, RUN, 192, "cpu", compute_dtype=torch.bfloat16)
+        amortized_bf16, k1_bf16_model_abs = check_bf16_amortized(model_bf16)
+        log("bf16 amortized forward checked")
+        k1_bf16_launches, bf16_path = run_bf16_sga(model_bf16, amortized_bf16,
+                                                   sga_path["ms_per_step"])
+        log("bf16 sga done")
+
+        method_paths = run_methods(amortized, workdir)
+        method_errs = check_methods_card_vs_cpu(model_cpu)
+        for script, err in method_errs.items():
+            method_paths[script]["card_vs_cpu_loss_rel_err"] = err
+        log("methods done")
     finally:
         shutil.rmtree(workdir)
 
@@ -656,7 +907,11 @@ def main():
             "gdn (K1, fused GDN/IGDN)", "nic_tpu_torch/csrc/gdn.cu",
             "nic_tpu/ops/pallas_gdn.py:23", k1_launches, k1_max_abs, k1_row,
             "torch.addmm(beta, x^2, gamma), the cuBLAS product at K1's core",
-            shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32", shapes=k1_timings),
+            shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32", shapes=k1_timings,
+            launches_by_path=dict(
+                sga=k1_launches, sga_bf16=k1_bf16_launches,
+                **{m: method_paths[m]["k1_launches"] for m in METHODS}),
+            max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
             "nic_tpu/ops/pallas_convt.py:67", k2_launches, k2_max_abs, k2_row,
@@ -664,7 +919,11 @@ def main():
             shape=f"IGDN {k2_row['shape']} float32", shapes=k2_timings),
     ]
     paths = {"sga": sga_path, "mbt2018": mbt2018_path,
-             "exp_fused_convt bench + fused_synthesis_layer": k2_path}
+             "exp_fused_convt bench + fused_synthesis_layer": k2_path,
+             "sga bf16 (LatentOptimizer)": bf16_path,
+             "bf16 amortized": dict(est_bpp=float(amortized_bf16["est_bpp"].mean()),
+                                    psnr=float(amortized_bf16["psnr"].mean())),
+             **method_paths}
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -82,10 +82,11 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def load_model(checkpoint_dir: str, runname: str, num_filters: int,
-               device) -> Tuple[int, MeanScaleHyperprior]:
+def load_model(checkpoint_dir: str, runname: str, num_filters: int, device,
+               compute_dtype: torch.dtype = torch.float32) -> Tuple[int, MeanScaleHyperprior]:
     """(step, model) from the newest params-<step>.npz of a run, on
-    ``device``, in eval mode with its parameters frozen."""
+    ``device``, in eval mode with its parameters frozen; its transforms
+    compute in ``compute_dtype`` (the parameters stay float32)."""
     save_dir = os.path.join(checkpoint_dir, runname)
     path = latest_npz(save_dir)
     if path is None:
@@ -95,7 +96,7 @@ def load_model(checkpoint_dir: str, runname: str, num_filters: int,
     filters = state["analysis.layer_0.weight"].shape[0]
     if filters != num_filters:
         raise ValueError(f"{path} holds num_filters={filters}, not {num_filters}")
-    model = MeanScaleHyperprior(num_filters)
+    model = MeanScaleHyperprior(num_filters, compute_dtype)
     model.load_state_dict(state)
     model.to(device).eval().requires_grad_(False)
     print(f"load_model: {path} (step {step})")

@@ -1,19 +1,24 @@
 """Command-line interface of the port (counterpart of nic_tpu/cli/main.py).
 
-  python -m nic_tpu_torch [--device cuda|cpu] --num_filters 192 \\
+  python -m nic_tpu_torch [--device cuda|cpu] [--verbose] --num_filters 192 \\
       --checkpoint_dir checkpoints_synth3 \\
-      sga compress mbt2018-num_filters=192-lmbda=0.01 <input.png|batch.npy> [out.ntc]
+      {sga,map,ste,unoise,danneal} compress mbt2018-num_filters=192-lmbda=0.01 \\
+      <input.png|batch.npy> [out.ntc]
   python -m nic_tpu_torch ... mbt2018 compress <runname> <input> [out.ntc]
-  python -m nic_tpu_torch ... {mbt2018,sga} decompress <runname> <in.ntc> [out.png]
+  python -m nic_tpu_torch ... <script> decompress <runname> <in.ntc> [out.png]
 
-It takes nic_tpu's command line. This slice runs ``sga compress`` (with
-estimated rates, and a real bitstream when an output file is named),
-``mbt2018 compress`` (amortized latents, real bitstream) and their
-``decompress``; every other script, subcommand or flag exits non-zero with
-"not ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
-is given, and raises when there is no card. Streams decode with the same
-code on the same device type: ``decompress`` takes the ``--device`` that
-``compress`` was given.
+It takes nic_tpu's command line. It runs ``compress`` of the five
+iterative methods (sga, map, ste, unoise, danneal: estimated rates, and a
+real bitstream when an output file is named, except for map and unoise
+with ``--unoise_mean_source noisy_z``, whose latents no decoder can
+reproduce) and of ``mbt2018`` (amortized latents, real bitstream), and
+their ``decompress``; every other script, subcommand or flag exits non-zero
+with "not ported yet (ROADMAP.md)". It runs on the card unless ``--device
+cpu`` is given, and raises when there is no card. Streams decode with the
+same code on the same device type: ``decompress`` takes the ``--device``
+that ``compress`` was given. The transforms compute in float32, as
+nic_tpu's CLI does; bfloat16 is reached through the library
+(``load_model(..., compute_dtype=torch.bfloat16)``).
 """
 
 import argparse
@@ -31,8 +36,10 @@ METHOD_SCRIPTS = ("sga", "map", "ste", "unoise", "danneal")
 BB_SCRIPTS = ("bb_sga", "bb_no_sga", "bb_plain")
 ALL_SCRIPTS = MODELS + METHOD_SCRIPTS + BB_SCRIPTS
 FIELDS = ("mse", "psnr", "msssim", "msssim_db", "est_bpp", "est_y_bpp", "est_z_bpp")
-# Scripts whose compress and decompress this slice runs.
-PORTED = ("mbt2018", "sga")
+# Scripts whose compress and decompress the port runs.
+PORTED = ("mbt2018",) + METHOD_SCRIPTS
+# --verbose probes the rounded objective every this many steps.
+VERBOSE_PROBE_EVERY = 100
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,7 +65,15 @@ def build_parser() -> argparse.ArgumentParser:
     compress_cmd.add_argument("--annealing_rate", type=float, default=1e-3)
     compress_cmd.add_argument("--t0", type=int, default=700)
     compress_cmd.add_argument("--seed", type=int, default=cfg.DEFAULT_SEED)
-    compress_cmd.add_argument("--distortion", choices=("mse", "msssim"), default="mse")
+    compress_cmd.add_argument(
+        "--distortion", choices=("mse", "msssim"), default="mse",
+        help="Distortion term of the optimized objective (images >= 176px for msssim).",
+    )
+    compress_cmd.add_argument(
+        "--unoise_mean_source", choices=("quantized_z", "noisy_z"), default="quantized_z",
+        help="unoise only: mean used to quantize the transmitted y; noisy_z "
+        "streams are estimate-only.",
+    )
     compress_cmd.add_argument(
         "--save_opt_record", action="store_true",
         help="Save per-iteration loss records.",
@@ -88,10 +103,6 @@ def _check_ported(args, unknown: List[str]) -> None:
         _not_ported(f"{args.script} {args.command}")
     if unknown:
         _not_ported(' '.join(unknown))
-    if args.verbose:
-        _not_ported("--verbose (rounded-objective probes)")
-    if args.command == "compress" and args.distortion != "mse":
-        _not_ported(f"--distortion {args.distortion}")
 
 
 def _resolve_lmbda(args) -> float:
@@ -165,15 +176,44 @@ def _compress_amortized(args, X) -> Dict[str, Any]:
                 bytes=len(blob))
 
 
-def run_compress(args) -> Dict[str, Any]:
-    """``sga compress``: optimize each batch's latents, save the RD results,
-    and write the last batch's bitstream when an output file is named;
-    ``mbt2018 compress``: see ``_compress_amortized``.
+def _write_stream(args, model, device, res, image_hw) -> Dict[str, Any]:
+    """Write the last batch's transmitted latents to ``args.output_file``:
+    sga, ste and danneal transmit integer-grid latents (a mode=1 stream),
+    unoise with the quantized-z mean median/mean-centered ones, which the
+    amortized scheme codes exactly. map's mean comes from the continuous z
+    and unoise's noisy_z mean from a noise draw; no decoder can reproduce
+    either, so those write nothing and warn."""
+    if args.script == "map" or (
+        args.script == "unoise" and args.unoise_mean_source == "noisy_z"
+    ):
+        print(
+            f"WARNING: not writing {args.output_file} — {args.script} transmitted "
+            "latents use a quantization mean the decoder cannot reproduce; rates "
+            "are estimate-only. Use unoise --unoise_mean_source quantized_z for a "
+            "decodable stream.",
+            file=sys.stderr,
+        )
+        return {}
+    from nic_tpu_torch.coding.codec import HyperpriorCodec
 
-    For sga, returns the saved per-image results, the device time of each
-    batch's optimization loop (``loop_ms``, ``steps``), and, when a stream
-    was written, the uint8 reconstruction of the transmitted latents
-    (``pixels``) and the codec's timing.
+    codec = HyperpriorCodec(model, device)
+    write = codec.compress_latents if args.script == "unoise" else codec.compress_optimized
+    blob = write(res["y"], res["z"], image_hw)
+    _write(args.output_file, blob, int(np.prod(res["x_tilde"].shape[:3])))
+    return dict(pixels=codec.last_pixels, timing=codec.last_timing, bytes=len(blob))
+
+
+def run_compress(args) -> Dict[str, Any]:
+    """``<method> compress``: optimize each batch's latents, save the RD
+    results, and write the last batch's bitstream when an output file is
+    named (see ``_write_stream``); ``mbt2018 compress``: see
+    ``_compress_amortized``.
+
+    For a method, returns the saved per-image results, the device time of
+    each batch's optimization loop (``loop_ms``) and the steps it ran
+    (``steps``, one entry per batch), and, when a stream was written, the
+    uint8 reconstruction of the transmitted latents (``pixels``) and the
+    codec's timing.
     """
     from nic_tpu_torch.evaluation.results import save_rd_results
     from nic_tpu_torch.infer.engine import LatentOptimizer
@@ -187,23 +227,30 @@ def run_compress(args) -> Dict[str, Any]:
     opt = LatentOptimizer(model, device)
     spec = get_method(args.script).replace(
         iterations=args.sga_its, annealing_rate=args.annealing_rate, t0=args.t0,
+        distortion=args.distortion, unoise_mu_source=args.unoise_mean_source,
     )
+    probe_every = VERBOSE_PROBE_EVERY if args.verbose else 0
     results = {k: [] for k in FIELDS}
-    rd_losses, rounded_losses, loop_ms = [], [], []
+    rd_losses, rounded_losses, loop_ms, steps = [], [], [], []
     last_res = None
     for batch in _batches(X):
-        res = last_res = opt.optimize(batch, lmbda, method=spec, seed=args.seed)
+        res = last_res = opt.optimize(batch, lmbda, method=spec, seed=args.seed,
+                                      probe_every=probe_every)
         for k in FIELDS:
             results[k].extend(np.asarray(res[k]).tolist())
-        rd_losses.append(res["losses"])
-        rounded_losses.append(res["rounded_losses"])
+        # The early-stopping methods keep no loss history.
+        if res["losses"].size:
+            rd_losses.append(res["losses"])
+            rounded_losses.append(res["rounded_losses"])
         loop_ms.append(opt.last_timing["loop_ms"])
+        steps.append(opt.last_timing["steps"])
         print(
-            f"{args.script}: {spec.iterations} steps on {batch.shape[0]} image(s) "
-            f"in {loop_ms[-1]:.1f} ms ({loop_ms[-1] / max(spec.iterations, 1):.3f} "
+            f"{args.script}: {steps[-1]} steps on {batch.shape[0]} image(s) "
+            f"in {loop_ms[-1]:.1f} ms ({loop_ms[-1] / max(steps[-1], 1):.3f} "
             f"ms/step, {device.type})"
         )
     if args.save_opt_record and rd_losses:
+        # [num_batches, its] for several batches; one batch stays 1-D.
         pack = np.stack if len(rd_losses) > 1 else (lambda ls: ls[0])
         opt_record = {
             "its": np.arange(rd_losses[0].size),
@@ -223,16 +270,9 @@ def run_compress(args) -> Dict[str, Any]:
         os.makedirs(args.results_dir, exist_ok=True)
         write_png(recon_path, last_res["x_tilde"][0])
         print(f"Saved reconstruction to {recon_path}")
-    out = dict(loop_ms=loop_ms, steps=spec.iterations)
+    out = dict(loop_ms=loop_ms, steps=steps)
     if args.output_file and last_res is not None:
-        # The transmitted latents are plainly rounded: an integer-grid
-        # (mode=1) stream.
-        from nic_tpu_torch.coding.codec import HyperpriorCodec
-
-        codec = HyperpriorCodec(model, device)
-        blob = codec.compress_optimized(last_res["y"], last_res["z"], X.shape[1:3])
-        _write(args.output_file, blob, int(np.prod(last_res["x_tilde"].shape[:3])))
-        out.update(pixels=codec.last_pixels, timing=codec.last_timing, bytes=len(blob))
+        out.update(_write_stream(args, model, device, last_res, X.shape[1:3]))
     results = {k: np.asarray(v) for k, v in results.items()}
     save_rd_results(
         results, args.results_dir, args.script, args.runname, args.input_file, lmbda
@@ -241,8 +281,8 @@ def run_compress(args) -> Dict[str, Any]:
 
 
 def run_decompress(args) -> Dict[str, Any]:
-    """Decode a stream written by ``mbt2018 compress`` or ``sga compress``
-    (the codec dispatches on the stream's mode) and write the first image
+    """Decode a stream written by ``mbt2018 compress`` or a method's
+    ``compress`` (the codec dispatches on the stream's mode) and write the first image
     as a PNG. Returns the decoded float pixels, the PNG's path and the
     codec's timing."""
     from nic_tpu_torch.coding.codec import HyperpriorCodec

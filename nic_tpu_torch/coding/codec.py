@@ -241,7 +241,8 @@ class HyperpriorCodec:
         """Serialize median/mean-centered quantized latents (z_hat =
         round(z - median) + median, y_q = round(y - mu) + mu with mu =
         h_s(z_hat)) into a stream that plain ``decompress`` decodes: the
-        symbols are the integers the amortized scheme would code."""
+        symbols are the integers the amortized scheme would code.
+        ``last_pixels`` holds the uint8 pixels that ``decompress`` returns."""
         self.last_timing = {}
         zt, yt = self.z_table(), self.y_table()
         model = self.model
@@ -254,6 +255,9 @@ class HyperpriorCodec:
             y_symbols = _host(torch.round(self._upload(np.asarray(y_q, np.float32))
                                           - mu).to(torch.int32))
             y_indexes = _host(idx).astype(np.int32)
+            # The decoder's own reconstruction of these symbols.
+            self.last_pixels = _host(_reconstruct_pass(
+                model, self._upload(_narrow(y_symbols)), mu, tuple(x_hw)))
         with self._phase("rans"):
             z_rows = self._z_rows(z_symbols.shape)
             packed = PackedBitstream()

@@ -1,15 +1,21 @@
-"""Iterative latent optimization, SGA (counterpart of nic_tpu/infer/engine.py).
+"""Iterative latent optimization: sga, map, ste, unoise and danneal
+(counterpart of nic_tpu/infer/engine.py).
 
-The loop runs on the device with no host sync per step: the temperature
-and Adam's step size come from the step number on the host, the loss of
-each step goes into a preallocated device tensor, and the losses are copied
-to the host once at the end. nic_tpu's chunking of the loop exists for a TPU
-watchdog and has no counterpart here.
+The loop runs on the device. The temperature and Adam's step size come
+from the step number on the host, the loss of each step goes into a
+preallocated device tensor, and the losses are copied to the host once at
+the end. The fixed-length methods (sga, unoise, danneal) need no host sync
+per step, and their ``--verbose`` probes also go into a device tensor. map
+and ste stop early: every ``probe_interval`` steps and at the last step the
+host reads one probe value (one sync), keeps the latents while the probe
+improves and stops at the first probe that does not. nic_tpu's chunking of
+the loop exists for a TPU watchdog and has no counterpart here.
 
-Noise: each step draws the Gumbel noise of z and of y from a
-``torch.Generator`` on the device, seeded from ``seed``. A caller may
-instead pass ``gumbel_fn(step, name, shape)``, name "y" or "z", which tests
-use to feed JAX's draws.
+Noise: each step draws sga's Gumbel noise or unoise's uniform noise of z,
+then of y, from a ``torch.Generator`` on the device, seeded from ``seed``;
+unoise's "noisy_z" transmit draw comes from a second generator derived from
+the seed. A caller may instead pass ``noise_fn(step, name, shape)``, name
+"y", "z" or "transmit" (step None), which tests use to feed JAX's draws.
 """
 
 import time
@@ -25,10 +31,20 @@ from nic_tpu_torch.evaluation.metrics import psnr as psnr_fn
 from nic_tpu_torch.infer.adam import adam_init, adam_update
 from nic_tpu_torch.infer.methods import SGA, MethodSpec, get_method
 from nic_tpu_torch.models.mbt2018 import LN2, MeanScaleHyperprior
-from nic_tpu_torch.ops.quantize import sga_relax
+from nic_tpu_torch.ops.quantize import (
+    danneal_relax,
+    draw_uniform,
+    round_ste,
+    sga_relax,
+    uniform_noise,
+)
 from nic_tpu_torch.ops.schedules import annealed_temperature
 
-GumbelFn = Callable[[int, str, tuple], torch.Tensor]
+NoiseFn = Callable[[Optional[int], str, tuple], torch.Tensor]
+# Offset of the unoise transmit generator's seed from the loop's.
+TRANSMIT_SEED_OFFSET = 0x7A31
+# The 5-scale MS-SSIM window needs 11 * 2^4 pixels on the short side.
+MSSSIM_MIN_SIDE = 176
 
 
 class Latents(NamedTuple):
@@ -39,16 +55,26 @@ class Latents(NamedTuple):
 # --------------------------------------------------------------------- core
 
 
-def _relax(method: str, v, temperature, generator=None, gumbel=None):
-    if method != "sga":
-        get_method(method)  # raises: the other relaxations are not ported yet
-    return sga_relax(v, temperature, generator=generator, gumbel=gumbel)
+def _relax(method: str, v, temperature, generator=None, noise=None):
+    """The method's relaxation of rounding; ``noise`` holds sga's Gumbel or
+    unoise's uniform draws, or None to draw them from ``generator``."""
+    if method == "sga":
+        return sga_relax(v, temperature, generator=generator, gumbel=noise)
+    if method == "danneal":
+        return danneal_relax(v, temperature)
+    if method == "map":
+        return v
+    if method == "ste":
+        return round_ste(v)
+    if method == "unoise":
+        return uniform_noise(v, generator=generator, noise=noise)
+    raise ValueError(f"Unknown relaxation {method!r}")
 
 
 def _forward(model: MeanScaleHyperprior, latents: Latents, x, temperature,
              method: str, noise: Optional[Latents] = None, generator=None):
-    """Relax -> likelihoods -> reconstruction. ``noise`` holds the Gumbel
-    draws of y and z, or None to draw them from ``generator``."""
+    """Relax -> likelihoods -> reconstruction. ``noise`` holds the draws of
+    y and z, or None to draw them from ``generator``."""
     noise = noise or Latents(None, None)
     z_tilde = _relax(method, latents.z, temperature, generator, noise.z)
     z_lik = model.z_likelihood(z_tilde)
@@ -61,8 +87,10 @@ def _forward(model: MeanScaleHyperprior, latents: Latents, x, temperature,
 
 
 def _rd_loss(model, latents: Latents, x, lmbda: float, temperature,
-             method: str, noise: Optional[Latents] = None, generator=None):
-    """lambda * 255^2 * MSE + mean bpp; (loss, dict(mse, bpp))."""
+             method: str, noise: Optional[Latents] = None, generator=None,
+             distortion: str = "mse"):
+    """lambda * distortion + mean bpp; (loss, dict(mse, bpp)). The
+    distortion is 255^2 * MSE, or 1 - MS-SSIM with ``distortion="msssim"``."""
     _, _, y_lik, z_lik, _, _, x_tilde = _forward(
         model, latents, x, temperature, method, noise, generator
     )
@@ -71,13 +99,48 @@ def _rd_loss(model, latents: Latents, x, lmbda: float, temperature,
     z_bpp = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
     train_bpp = torch.mean(y_bpp + z_bpp)
     mse = torch.mean(torch.square(x - x_tilde)) * (255.0 ** 2)
-    loss = lmbda * mse + train_bpp if lmbda > 0 else train_bpp
+    if distortion == "msssim":
+        dist = 1.0 - torch.mean(msssim_fn(x_tilde, x, 1.0))
+    else:
+        dist = mse
+    loss = lmbda * dist + train_bpp if lmbda > 0 else train_bpp
     return loss, dict(mse=mse, bpp=train_bpp)
 
 
-def _quantize_transmitted(latents: Latents) -> Latents:
-    """The latents SGA transmits: plain rounding."""
-    return Latents(y=torch.round(latents.y), z=torch.round(latents.z))
+@torch.no_grad()
+def _quantize_transmitted(model, latents: Latents, method: str,
+                          unoise_mu_source: str = "quantized_z",
+                          transmit_noise=None) -> Latents:
+    """The latents each method transmits.
+
+    sga, ste, danneal: plain rounding. map: median-centered z, and y
+    centered on the mean from the continuous z. unoise: the same quantizers,
+    the mean from the quantized z ("quantized_z", decodable) or from
+    z + ``transmit_noise``, a U(-.5, .5) draw ("noisy_z").
+    """
+    if method in ("sga", "ste", "danneal"):
+        return Latents(y=torch.round(latents.y), z=torch.round(latents.z))
+    z_hat = model.quantize_z(latents.z)
+    y_hw = (latents.y.shape[1], latents.y.shape[2])
+    if method == "map":
+        mu_src = latents.z
+    elif method == "unoise":
+        mu_src = latents.z + transmit_noise if unoise_mu_source == "noisy_z" else z_hat
+    else:
+        raise ValueError(method)
+    mu, _ = model.hyper_synthesize(mu_src, y_hw)
+    return Latents(y=model.conditional.quantize(latents.y, mu), z=z_hat)
+
+
+@torch.no_grad()
+def _probe_objective(model, latents: Latents, x, lmbda: float, method: str,
+                     distortion: str = "mse"):
+    """The discrete objective after quantization, with the identity
+    relaxation on the quantized latents: the early stop's and --verbose's
+    probe."""
+    q = _quantize_transmitted(model, latents, method)
+    loss, _ = _rd_loss(model, q, x, lmbda, 1.0, "map", distortion=distortion)
+    return loss
 
 
 @torch.no_grad()
@@ -132,7 +195,7 @@ def _to_numpy(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 class LatentOptimizer:
-    """Binds a model to a device; runs SGA over an image batch.
+    """Binds a model to a device; runs any method over an image batch.
 
     The model is moved to ``device`` (the card unless the caller asks for
     the CPU), put in eval mode and frozen: only the latents are optimized.
@@ -168,50 +231,96 @@ class LatentOptimizer:
         return lambda: (time.perf_counter() - t0) * 1e3
 
     def optimize(self, x, lmbda: float, method: MethodSpec = SGA, seed: int = 0,
-                 gumbel_fn: Optional[GumbelFn] = None) -> Dict[str, np.ndarray]:
+                 noise_fn: Optional[NoiseFn] = None,
+                 probe_every: int = 0) -> Dict[str, np.ndarray]:
         """Run the full iterative inference for one image batch.
 
-        Returns the transmitted latents, the per-image eval metrics, and the
-        per-iteration loss history, under nic_tpu's keys.
+        Returns the transmitted latents, the per-image eval metrics and, for
+        the fixed-length methods, the loss of every step (``losses``) and the
+        rounded objective every ``probe_every`` steps, NaN elsewhere
+        (``rounded_losses``: the --verbose probes); the early-stopping
+        methods return both empty, as nic_tpu does. ``last_timing`` holds
+        the steps actually run and the loop's device time.
         """
         get_method(method.name)
         x = self._tensor(x)
+        if method.distortion == "msssim" and min(x.shape[1], x.shape[2]) < MSSSIM_MIN_SIDE:
+            raise ValueError(
+                "msssim optimization objective needs images >= 176px on the "
+                f"short side (5 scales x 11-tap window); got {tuple(x.shape[1:3])}."
+            )
         generator = torch.Generator(device=self.device).manual_seed(seed)
         y0, z0 = _amortized_init(self.model, x)
         y = y0.clone().requires_grad_(True)
         z = z0.clone().requires_grad_(True)
         state = adam_init((y, z))
-        losses = torch.empty(method.iterations, device=self.device)
+        its = method.iterations
+        losses = torch.empty(its, device=self.device)
+        probes = torch.full((its,), float("nan"), device=self.device)
+        # Early stop: the latents of the last improving probe.
+        saved, prev_obj, stopped, steps = None, float("inf"), False, its
+
+        # sga draws a Gumbel pair per latent, unoise one uniform draw.
+        injected = noise_fn is not None and method.name in ("sga", "unoise")
+        pair = (2,) if method.name == "sga" else ()
+
+        def draw(it, name, v):
+            return noise_fn(it, name, tuple(v.shape) + pair).to(self.device)
+
         stop = self._timer()
-        for it in range(method.iterations):
+        for it in range(its):
             temperature = annealed_temperature(
                 it, r=method.annealing_rate, ub=method.temperature_ub,
                 scheme=method.annealing_scheme, t0=method.t0,
             )
-            noise = None
-            if gumbel_fn is not None:
-                noise = Latents(
-                    y=gumbel_fn(it, "y", tuple(y.shape) + (2,)).to(self.device),
-                    z=gumbel_fn(it, "z", tuple(z.shape) + (2,)).to(self.device),
-                )
+            noise = Latents(y=draw(it, "y", y), z=draw(it, "z", z)) if injected else None
             loss, _ = _rd_loss(
                 self.model, Latents(y, z), x, lmbda, temperature, method.name,
-                noise, generator,
+                noise, generator, method.distortion,
             )
             grads = torch.autograd.grad(loss, (y, z))
             state = adam_update((y, z), grads, state, method.lr)
-            losses[it] = loss.detach()
-        self.last_timing = dict(steps=method.iterations, loop_ms=stop())
+            loss = loss.detach()
+            if not method.early_stop:
+                losses[it] = loss
+                if probe_every > 0 and it % probe_every == 0:
+                    probes[it] = _probe_objective(self.model, Latents(y, z), x, lmbda,
+                                                  method.name, method.distortion)
+                continue
+            if it % method.probe_interval and it != its - 1:
+                continue
+            # STE compares the relaxed objective of this step itself.
+            obj = loss if method.name == "ste" else _probe_objective(
+                self.model, Latents(y, z), x, lmbda, method.name, method.distortion)
+            obj = float(obj)  # the host decides: one sync per probe
+            if obj <= prev_obj:
+                saved = Latents(y.detach().clone(), z.detach().clone())
+                prev_obj = obj
+            else:
+                stopped, steps = True, it + 1
+                break
+        self.last_timing = dict(steps=steps, loop_ms=stop())
 
-        transmitted = _quantize_transmitted(Latents(y.detach(), z.detach()))
-        compute_msssim = min(x.shape[1], x.shape[2]) >= 176
+        final = saved if stopped else Latents(y.detach(), z.detach())
+        transmit_noise = None
+        if method.name == "unoise" and method.unoise_mu_source == "noisy_z":
+            if noise_fn is not None:
+                transmit_noise = noise_fn(None, "transmit", tuple(z.shape)).to(self.device)
+            else:
+                transmit = torch.Generator(device=self.device).manual_seed(
+                    seed + TRANSMIT_SEED_OFFSET)
+                transmit_noise = draw_uniform(z.shape, transmit, self.device)
+        transmitted = _quantize_transmitted(
+            self.model, final, method.name, method.unoise_mu_source, transmit_noise)
+        compute_msssim = min(x.shape[1], x.shape[2]) >= MSSSIM_MIN_SIDE
         metrics = _eval_transmitted(self.model, x, transmitted, compute_msssim)
+        if method.early_stop:
+            losses = probes = torch.zeros(0)
         return dict(
             y=transmitted.y.cpu().numpy(),
             z=transmitted.z.cpu().numpy(),
             losses=losses.cpu().numpy(),
-            # The rounded-objective probes (--verbose) are not ported.
-            rounded_losses=np.full(method.iterations, np.nan, np.float32),
+            rounded_losses=probes.cpu().numpy(),
             **_to_numpy(metrics),
         )
 
@@ -219,7 +328,7 @@ class LatentOptimizer:
         """Evaluate plainly-rounded latents."""
         x = self._tensor(x)
         latents = Latents(y=torch.round(self._tensor(y)), z=torch.round(self._tensor(z)))
-        compute_msssim = min(x.shape[1], x.shape[2]) >= 176
+        compute_msssim = min(x.shape[1], x.shape[2]) >= MSSSIM_MIN_SIDE
         return _to_numpy(_eval_transmitted(self.model, x, latents, compute_msssim))
 
     @torch.no_grad()
@@ -227,7 +336,7 @@ class LatentOptimizer:
         """No-optimization baseline: quantize the amortized latents."""
         x = self._tensor(x)
         out = self.model(x)
-        compute_msssim = min(x.shape[1], x.shape[2]) >= 176
+        compute_msssim = min(x.shape[1], x.shape[2]) >= MSSSIM_MIN_SIDE
         metrics = _eval_transmitted(
             self.model, x, Latents(y=out["y_tilde"], z=out["z_tilde"]), compute_msssim
         )

@@ -1,8 +1,10 @@
 """Strided signal convolutions and GDN (counterpart of nic_tpu/models/layers.py).
 
-Activations are NHWC at every public function, as in nic_tpu. A
-convolution permutes its input to an NCHW view with channels-last strides,
-which cuDNN takes as it is, and permutes the result back.
+Activations are NHWC at every public function, as in nic_tpu. Each layer
+computes in its ``dtype`` (float32, or bfloat16 for the bf16 transforms):
+it casts its input and its weights down, while the parameters stay float32.
+A convolution permutes its input to an NCHW view with channels-last
+strides, which cuDNN takes as it is, and permutes the result back.
 
 Padding reproduces XLA's "SAME":
 - down (stride s, k x k): pad p = max((ceil(H/s) - 1) * s + k - H, 0), top
@@ -45,12 +47,17 @@ class SignalConv(nn.Module):
     ``weight`` is stored as the torch op takes it: (out, in, kh, kw) for a
     down or stride-1 conv; (in, out, kh, kw), spatially flipped, for an up
     conv. ``weight_from_hwio`` converts an nic_tpu HWIO kernel.
+
+    ``dtype`` is the computation dtype: the input and the weight are cast to
+    it before the conv, and in bfloat16 the bias is added after the conv in
+    bfloat16, as nic_tpu adds it; the output is in ``dtype``.
     """
 
     def __init__(self, in_channels: int, features: int, kernel: int = 5,
                  strides_down: int = 1, strides_up: int = 1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if strides_down > 1 and strides_up > 1:
             raise ValueError("Cannot both down- and up-sample.")
         if strides_up > 1 and (strides_up, kernel) != (2, 5):
@@ -79,14 +86,22 @@ class SignalConv(nn.Module):
 
     def forward(self, x):
         n, h, w, _ = x.shape
+        x = x.to(self.dtype)
+        weight = self.weight.to(self.dtype)
+        # In float32 cuDNN adds the bias inside the conv; a bfloat16 conv
+        # rounds its sum first, and the bias is added to the rounded value.
+        fused = self.bias if self.dtype == torch.float32 else None
         if self.transpose:
-            return conv_transpose_up2(x, self.weight, self.bias)
-        s, k = self.strides_down, self.kernel
-        top, bottom = _same_pads(h, k, s)
-        left, right = _same_pads(w, k, s)
-        x = F.pad(x, (0, 0, left, right, top, bottom))
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, stride=s)
-        return y.permute(0, 2, 3, 1)
+            y = conv_transpose_up2(x, weight, fused)
+        else:
+            s, k = self.strides_down, self.kernel
+            top, bottom = _same_pads(h, k, s)
+            left, right = _same_pads(w, k, s)
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+            y = F.conv2d(x.permute(0, 3, 1, 2), weight, fused, stride=s).permute(0, 2, 3, 1)
+        if self.bias is not None and fused is None:
+            y = y + self.bias.to(self.dtype)
+        return y
 
 
 class GDN(nn.Module):
@@ -96,11 +111,16 @@ class GDN(nn.Module):
     small pedestal: the stored variable v maps to ``lower_bound(v, b)^2 - p``
     with pedestal p = offset^2 and bound b = sqrt(minimum + p). The stored
     values are nic_tpu's. Initial effective values: beta = 1, gamma = 0.1 * I.
+
+    ``dtype`` is the computation dtype: x is cast to it, and ``ops/gdn.gdn``
+    casts gamma to x's dtype and keeps beta and the normalizer in float32.
     """
 
     def __init__(self, channels: int, inverse: bool = False,
-                 beta_min: float = 1e-6, reparam_offset: float = 2 ** -18):
+                 beta_min: float = 1e-6, reparam_offset: float = 2 ** -18,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.inverse = inverse
         self.pedestal = reparam_offset ** 2
         self.beta_bound = (beta_min + self.pedestal) ** 0.5
@@ -120,4 +140,4 @@ class GDN(nn.Module):
 
     def forward(self, x):
         beta, gamma = self.effective_params()
-        return gdn_op(x, beta, gamma, inverse=self.inverse)
+        return gdn_op(x.to(self.dtype), beta, gamma, inverse=self.inverse)

@@ -5,8 +5,10 @@
     p(x | y_tilde) = N(g_s(y_tilde), .)
 
 The sub-passes are exposed one by one because the inference engine builds
-its own computation over the latents. All tensors are NHWC; the model runs
-in fp32. The evaluation forward and the coding tables are ported (training
+its own computation over the latents. All tensors are NHWC. The transforms
+compute in ``compute_dtype`` (float32 or bfloat16) and return float32; the
+parameters, the z prior, the Gaussian conditional and the rate math stay
+float32. The evaluation forward and the coding tables are ported (training
 is later work).
 """
 
@@ -31,14 +33,17 @@ LN2 = 0.6931471805599453
 class MeanScaleHyperprior(nn.Module):
     """The base hyperprior model: g_a, g_s, h_a, h_s and the z prior."""
 
-    def __init__(self, num_filters: int = 192):
+    def __init__(self, num_filters: int = 192, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         n = num_filters
+        dt = compute_dtype
         self.num_filters = n
-        self.analysis = AnalysisTransform(n)
-        self.synthesis = SynthesisTransform(n)
-        self.hyper_analysis = HyperAnalysisTransform(n)
-        self.hyper_synthesis = MBT2018HyperSynthesisTransform(n, num_output_filters=2 * n)
+        self.compute_dtype = dt
+        self.analysis = AnalysisTransform(n, dtype=dt)
+        self.synthesis = SynthesisTransform(n, dtype=dt)
+        self.hyper_analysis = HyperAnalysisTransform(n, dtype=dt)
+        self.hyper_synthesis = MBT2018HyperSynthesisTransform(
+            n, num_output_filters=2 * n, dtype=dt)
         self.entropy_bottleneck = FactorizedEntropyModel(n)
         self.conditional = GaussianConditional()
 

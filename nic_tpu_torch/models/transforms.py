@@ -3,6 +3,7 @@
 
 g_a downsamples 16x, h_a another 4x; g_s and h_s undo it. Submodule names
 follow nic_tpu's parameter paths (``layer_i``, ``gdn_i``, ``igdn_i``).
+Each transform computes in its ``dtype`` and returns float32.
 """
 
 from typing import Optional
@@ -16,68 +17,70 @@ from nic_tpu_torch.models.layers import GDN, SignalConv
 class AnalysisTransform(nn.Module):
     """Image -> latent encoder g_a (4x 5x5/down2, GDN after the first three)."""
 
-    def __init__(self, num_filters: int):
+    def __init__(self, num_filters: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         n = num_filters
         for i in range(3):
             setattr(self, f"layer_{i}", SignalConv(3 if i == 0 else n, n, 5,
-                                                   strides_down=2))
-            setattr(self, f"gdn_{i}", GDN(n))
-        self.layer_3 = SignalConv(n, n, 5, strides_down=2)
+                                                   strides_down=2, dtype=dtype))
+            setattr(self, f"gdn_{i}", GDN(n, dtype=dtype))
+        self.layer_3 = SignalConv(n, n, 5, strides_down=2, dtype=dtype)
 
     def forward(self, x):
         for i in range(3):
             x = getattr(self, f"gdn_{i}")(getattr(self, f"layer_{i}")(x))
-        return self.layer_3(x)
+        return self.layer_3(x).float()
 
 
 class SynthesisTransform(nn.Module):
     """Latent -> image decoder g_s (4x 5x5/up2, IGDN after the first three)."""
 
-    def __init__(self, num_filters: int):
+    def __init__(self, num_filters: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         n = num_filters
         for i in range(3):
-            setattr(self, f"layer_{i}", SignalConv(n, n, 5, strides_up=2))
-            setattr(self, f"igdn_{i}", GDN(n, inverse=True))
-        self.layer_3 = SignalConv(n, 3, 5, strides_up=2)
+            setattr(self, f"layer_{i}", SignalConv(n, n, 5, strides_up=2, dtype=dtype))
+            setattr(self, f"igdn_{i}", GDN(n, inverse=True, dtype=dtype))
+        self.layer_3 = SignalConv(n, 3, 5, strides_up=2, dtype=dtype)
 
     def forward(self, y):
         for i in range(3):
             y = getattr(self, f"igdn_{i}")(getattr(self, f"layer_{i}")(y))
-        return self.layer_3(y)
+        return self.layer_3(y).float()
 
 
 class HyperAnalysisTransform(nn.Module):
     """y -> z hyper-encoder h_a (3x3/s1, 5x5/down2, 5x5/down2 bias-free; relu)."""
 
-    def __init__(self, num_filters: int, num_output_filters: Optional[int] = None):
+    def __init__(self, num_filters: int, num_output_filters: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n = num_filters
         out = num_output_filters or n
-        self.layer_0 = SignalConv(n, n, 3, strides_down=1)
-        self.layer_1 = SignalConv(n, n, 5, strides_down=2)
-        self.layer_2 = SignalConv(n, out, 5, strides_down=2, use_bias=False)
+        self.layer_0 = SignalConv(n, n, 3, strides_down=1, dtype=dtype)
+        self.layer_1 = SignalConv(n, n, 5, strides_down=2, dtype=dtype)
+        self.layer_2 = SignalConv(n, out, 5, strides_down=2, use_bias=False, dtype=dtype)
 
     def forward(self, y):
         y = torch.relu(self.layer_0(y))
         y = torch.relu(self.layer_1(y))
-        return self.layer_2(y)
+        return self.layer_2(y).float()
 
 
 class MBT2018HyperSynthesisTransform(nn.Module):
     """z -> (mu, log sigma) decoder h_s; the middle layer widens to 1.5N."""
 
-    def __init__(self, num_filters: int, num_output_filters: Optional[int] = None):
+    def __init__(self, num_filters: int, num_output_filters: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n = num_filters
         mid = int(n * 1.5)
         out = num_output_filters or n
-        self.layer_0 = SignalConv(n, n, 5, strides_up=2)
-        self.layer_1 = SignalConv(n, mid, 5, strides_up=2)
-        self.layer_2 = SignalConv(mid, out, 3, strides_down=1)
+        self.layer_0 = SignalConv(n, n, 5, strides_up=2, dtype=dtype)
+        self.layer_1 = SignalConv(n, mid, 5, strides_up=2, dtype=dtype)
+        self.layer_2 = SignalConv(mid, out, 3, strides_down=1, dtype=dtype)
 
     def forward(self, z):
         z = torch.relu(self.layer_0(z))
         z = torch.relu(self.layer_1(z))
-        return self.layer_2(z)
+        return self.layer_2(z).float()

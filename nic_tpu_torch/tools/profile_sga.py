@@ -1,9 +1,11 @@
 """Where the time of an SGA step goes on the card: a torch.profiler window.
 
   python -m nic_tpu_torch.tools.profile_sga [--steps 100] [--out chiprun_out/profile_sga.txt]
+      [--dtype bfloat16]
 
 Runs the main path's workload (MBT2018 nf=192, the lambda=0.01 checkpoint,
-data_real/eval_photos.npy: 3 x 384 x 512, fp32) through
+data_real/eval_photos.npy: 3 x 384 x 512; transforms in float32, or in
+bfloat16 with ``--dtype bfloat16``, the dtype of nic_tpu's bench) through
 LatentOptimizer.optimize: a warm-up run, then a profiled run of ``--steps``
 SGA steps. Device time per kernel comes from the profiler (CUPTI); the
 step's wall time from CUDA events around the loop. Per-step figures divide
@@ -12,7 +14,9 @@ amortized init (g_a, h_a) and one final evaluation. Then, without the
 profiler, the step time of a short and of a full 2000-step run, with the
 card's clocks, power and temperature (nvidia-smi) before and after, to
 show whether a long run slows. Prints one JSON line; writes the full kernel
-table to ``--out``.
+table to ``--out``. The convolutions' tensor-core share is the part of their
+time spent in kernels whose names mark a tensor-core implementation
+(``on_tensor_cores``).
 """
 
 import argparse
@@ -41,6 +45,18 @@ CATEGORIES = (
 )
 
 
+# Kernel-name fragments of cuDNN's tensor-core implementations (an input
+# type the tensor cores take, or their MMA shape); "ffma" marks the CUDA
+# cores' fp32 FMA, which the "xmma" kernel family also uses.
+TENSOR_CORE_MARKS = ("bf16", "f16", "tf32", "16816", "1688", "hmma", "gmma", "tensorop",
+                     "warpgroup")
+
+
+def on_tensor_cores(name):
+    low = name.lower()
+    return "ffma" not in low and any(k in low for k in TENSOR_CORE_MARKS)
+
+
 def categorize(name):
     low = name.lower()
     for cat, keys in CATEGORIES:
@@ -58,13 +74,16 @@ def smi(query):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="compute dtype of the transforms")
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_sga.txt"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sga: needs a CUDA card")
 
     _, model = load_model(os.path.join(ROOT, "checkpoints_synth3"),
-                          "mbt2018-num_filters=192-lmbda=0.01", 192, "cuda")
+                          "mbt2018-num_filters=192-lmbda=0.01", 192, "cuda",
+                          compute_dtype=getattr(torch, args.dtype))
     opt = LatentOptimizer(model, "cuda")
     x = np.load(os.path.join(ROOT, "data_real", "eval_photos.npy")).astype(np.float32) / 255.0
     opt.optimize(x, 0.01, method=SGA.replace(iterations=20))  # warm-up
@@ -95,9 +114,13 @@ def main(argv=None):
         c[0] += ms
         c[1] += n
     steps = args.steps
+    conv = [(n, ms) for n, (ms, _) in kernels.items()
+            if categorize(n) == "convolution (cuDNN)"]
+    conv_ms = sum(ms for _, ms in conv)
+    conv_tc_ms = sum(ms for n, ms in conv if on_tensor_cores(n))
     summary = dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi("name,power.limit"),
-        steps=steps, step_ms_profiled=loop_ms / steps, step_ms=loop_ms_plain / steps,
+        dtype=args.dtype, steps=steps, step_ms_profiled=loop_ms / steps, step_ms=loop_ms_plain / steps,
         full_run_steps=SGA.iterations, full_run_step_ms=long_ms_per_step,
         clocks_power_temp_before_full_run=card_before,
         clocks_power_temp_after_full_run=card_after,
@@ -105,6 +128,7 @@ def main(argv=None):
         # Busy time from the profiled run, against the step without the profiler.
         device_idle_share=max(0.0, 1.0 - device_ms / loop_ms_plain),
         kernels_per_step=sum(v[1] for v in kernels.values()) / steps,
+        conv_tensor_core_share=conv_tc_ms / conv_ms if conv_ms else 0.0,
         categories={c: dict(ms_per_step=v[0] / steps, launches_per_step=v[1] / steps,
                             share=v[0] / device_ms)
                     for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1][0])},

@@ -1,5 +1,6 @@
-"""The port's command line, on the CPU: ``sga compress --device cpu`` against
-nic_tpu's CLI on the same checkpoint and images, the refusals of what is not
+"""The port's command line, on the CPU: ``sga``, ``map``, ``ste`` and
+``danneal compress --device cpu`` against nic_tpu's CLI on the same
+checkpoint and images, the methods' streams, the refusals of what is not
 ported, the device policy, and the port's independence from JAX.
 
 Tolerance: float32 values 1e-5 relative, elementwise with an absolute floor
@@ -74,7 +75,7 @@ def test_sga_compress_matches_jax_cli(workdir, capsys):
     for k in FIELDS:
         assert got[k].shape == ref[k].shape == (2,)
         assert_rel(got[k], ref[k])
-    assert set(out["results"]) == set(FIELDS) and out["steps"] == 0
+    assert set(out["results"]) == set(FIELDS) and out["steps"] == [0]
     printed = capsys.readouterr().out
     for k in FIELDS:
         assert f"Avg {k}:" in printed
@@ -90,7 +91,79 @@ def test_sga_compress_writes_results_and_opt_record(workdir):
     assert np.all(np.isfinite(rd["est_bpp"])) and rd["est_bpp"].shape == (2,)
     assert opt["rd_loss"].shape == (4,) and np.all(np.isfinite(opt["rd_loss"]))
     np.testing.assert_array_equal(opt["its"], np.arange(4))
-    assert out["steps"] == 4 and len(out["loop_ms"]) == 1
+    assert out["steps"] == [4] and len(out["loop_ms"]) == 1
+
+
+@pytest.mark.parametrize("script,its", [("map", "2000"), ("ste", "2000"),
+                                        ("danneal", "6")])
+def test_method_compress_matches_jax_cli(workdir, capsys, script, its):
+    """The deterministic methods through both CLIs on the nf=8 checkpoint
+    and the two crops: map and ste at their full iteration count stop early
+    (map after 41 steps, ste after 161), danneal runs a few steps."""
+    jax_main(_argv(workdir, workdir / f"res_jax_{script}", script=script, its=its))
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / f"res_port_{script}",
+                                           script=script, its=its))
+    name = rd_results_filename(script, RUN, "crops.npy", 0.01)
+    ref = np.load(workdir / f"res_jax_{script}" / name)
+    got = np.load(workdir / f"res_port_{script}" / name)
+    for k in FIELDS:
+        assert got[k].shape == ref[k].shape == (2,)
+        assert_rel(got[k], ref[k])
+    steps = {"map": 41, "ste": 161, "danneal": 6}[script]
+    assert out["steps"] == [steps]
+    assert f"{script}: {steps} steps on 2 image(s)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("script,extra", [("unoise", ()), ("danneal", ())])
+def test_method_streams_decode_exactly(workdir, script, extra):
+    """unoise (quantized_z mean, through compress_latents) and danneal
+    (integer latents, through compress_optimized) write streams that
+    decompress to the compress side's pixels."""
+    stream = workdir / f"{script}.ntc"
+    png = workdir / f"{script}.png"
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / f"res_{script}_stream",
+                                           str(stream), *extra, script=script, its="3"))
+    assert stream.exists() and out["bytes"] == stream.stat().st_size
+    dec = main(["--device", "cpu", "--num_filters", "8", "--checkpoint_dir",
+                str(workdir / "ckpt"), script, "decompress", RUN, str(stream), str(png)])
+    got = np.round(dec["x_hat"] * 255.0).astype(np.uint8)
+    np.testing.assert_array_equal(got, out["pixels"])
+    assert png.exists()
+
+
+@pytest.mark.parametrize("script,extra", [
+    ("map", ()), ("unoise", ("--unoise_mean_source", "noisy_z")),
+])
+def test_undecodable_methods_write_no_stream(workdir, capsys, script, extra):
+    stream = workdir / f"{script}_undecodable.ntc"
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / f"res_{script}_nostream",
+                                           str(stream), *extra, script=script, its="2"))
+    assert not stream.exists() and "bytes" not in out
+    assert f"WARNING: not writing {stream}" in capsys.readouterr().err
+
+
+def test_opt_record_skips_empty_histories_and_holds_verbose_probes(workdir):
+    """map keeps no loss history, so --save_opt_record writes no record; a
+    fixed-length method's record holds its --verbose probes every 100 steps."""
+    results = workdir / "res_records"
+    main(["--device", "cpu"] + _argv(workdir, results, "--save_opt_record",
+                                     script="map", its="5"))
+    assert not (results / rd_results_filename("map", RUN, "crops.npy", 0.01,
+                                              prefix="opt")).exists()
+    main(["--device", "cpu", "--verbose"] + _argv(workdir, results, "--save_opt_record",
+                                                  script="danneal", its="102"))
+    rec = np.load(results / rd_results_filename("danneal", RUN, "crops.npy", 0.01,
+                                                prefix="opt"))
+    probed = np.isfinite(rec["rd_loss_after_rounding"])
+    np.testing.assert_array_equal(np.flatnonzero(probed), [0, 100])
+    assert rec["rd_loss"].shape == (102,) and np.all(np.isfinite(rec["rd_loss"]))
+
+
+@pytest.mark.parametrize("script", ["map", "ste", "unoise", "danneal"])
+def test_methods_raise_without_a_card(workdir, monkeypatch, script):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(_argv(workdir, workdir / "res_nocard", script=script))
 
 
 def test_default_device_raises_without_a_card(workdir, monkeypatch):
@@ -106,15 +179,16 @@ def test_default_device_raises_without_a_card(workdir, monkeypatch):
 
 @pytest.mark.parametrize("extra,script,before", [
     (("--quant", "int8"), "mbt2018", ()),
-    ((), "map", ()),
+    (("--data_parallel",), "map", ()),
     ((), "bb_sga", ()),
     (("out.ntc", "--quant", "int8"), "sga", ()),
     (("--data_parallel",), "sga", ()),
     (("--spatial",), "sga", ()),
-    (("--distortion", "msssim"), "sga", ()),
+    (("--spatial",), "unoise", ()),
     (("--quant", "int8"), "sga", ()),
-    (("--save_reconstruction", "--unoise_mean_source", "noisy_z"), "sga", ()),
-    ((), "sga", ("--verbose",)),
+    (("--quant", "int8"), "danneal", ()),
+    ((), "bb_no_sga", ("--verbose",)),
+    ((), "bb_plain", ()),
 ])
 def test_unported_parts_exit_nonzero(workdir, extra, script, before):
     argv = ["--device", "cpu", *before] + _argv(workdir, workdir / "res_x", *extra,

@@ -339,3 +339,15 @@ def test_cli_sga_compress_to_a_stream_and_decompress(crop_file):
     np.testing.assert_array_equal(_png(str(d / "sga.ntc") + ".png"), out["pixels"][0])
     recon = [f for f in os.listdir(d / "res_sga") if f.startswith("recon-sga-")]
     assert len(recon) == 1
+
+
+def test_compress_optimized_stream_size_matches_nic_tpu(models, crop, codec):
+    """The same plainly rounded latents through nic_tpu's and the port's
+    compress_optimized: stream sizes within 0.5 %, as for compress."""
+    jmodel, params, model = models
+    res = LatentOptimizer(model, "cpu").optimize(crop, 0.01, method=SGA.replace(iterations=3))
+    blob = codec.compress_optimized(res["y"], res["z"], crop.shape[1:3])
+    jax_blob = JaxCodec(jmodel, params).compress_optimized(res["y"], res["z"],
+                                                           crop.shape[1:3])
+    print(f"optimized stream: port {len(blob)} bytes, nic_tpu {len(jax_blob)} bytes")
+    assert abs(len(blob) - len(jax_blob)) <= STREAM_SIZE_RTOL * len(jax_blob)

@@ -338,3 +338,78 @@ def test_codec_roundtrip_on_the_card(parallel):
     np.testing.assert_array_equal(np.round(x_hat * 255.0).astype(np.uint8), out["pixels"])
     ref = np.clip(out["x_tilde"].cpu().numpy(), 0.0, 1.0)
     assert np.abs(x_hat - ref).max() <= 0.5 / 255.0 + 1e-6
+
+
+def _committed_model(device, dtype=torch.float32):
+    import os
+
+    from nic_tpu_torch.checkpoint import load_model
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    _, model = load_model(os.path.join(root, "checkpoints_synth3"),
+                          "mbt2018-num_filters=192-lmbda=0.01", 192, device,
+                          compute_dtype=dtype)
+    return model
+
+
+def _photo_crops(h=64, w=64):
+    import os
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    x = np.load(os.path.join(root, "data_real", "eval_photos.npy"))
+    return x[:2, 100:100 + h, 200:200 + w].astype(np.float32) / 255.0
+
+
+@pytest.mark.cuda
+def test_k1_bf16_on_the_model_gdn_layers():
+    """The bf16 model's six GDN and IGDN layers run K1's bf16 route, and K1
+    agrees with its plain version on the inputs the model gives it."""
+    _need_card()
+    from nic_tpu_torch.models.layers import GDN
+
+    model = _committed_model("cuda", torch.bfloat16)
+    seen = []
+    for m in model.modules():
+        if isinstance(m, GDN):
+            m.register_forward_pre_hook(lambda mod, args: seen.append((mod, args[0])))
+    x = torch.from_numpy(_photo_crops(128, 128)).to("cuda")
+    before = gdn_cuda.launches
+    with torch.no_grad():
+        model(x)
+        assert gdn_cuda.launches == before + 6 and len(seen) == 6
+        for mod, xg in seen:
+            assert xg.dtype == torch.bfloat16
+            beta, gamma = mod.effective_params()
+            out = gdn_cuda.gdn_kernel(xg, beta, gamma, mod.inverse)
+            ref = gdn_cuda.gdn_reference(xg, beta, gamma, mod.inverse)
+            torch.cuda.synchronize()
+            assert _rel(out, ref) <= RTOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["map", "ste", "unoise", "danneal"])
+def test_method_first_steps_card_vs_cpu(method):
+    """Each method's first 20 steps on 64x64 crops, early stop off: the
+    card's loss of every step against the port's CPU path within 1e-3
+    (fp32 sums in another order, carried through 20 Adam steps); unoise gets
+    the same uniform draws on both."""
+    _need_card()
+    import numpy as np
+
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import get_method
+
+    x = _photo_crops()
+    cpu = LatentOptimizer(_committed_model("cpu"), "cpu")
+    card = LatentOptimizer(_committed_model("cuda"), "cuda")
+    y0, z0 = cpu.amortized_init(x)
+    rng = np.random.default_rng(1)
+    draws = {(it, n): torch.from_numpy(rng.uniform(-0.5, 0.5, v.shape).astype(np.float32))
+             for it in range(20) for n, v in (("y", y0), ("z", z0))}
+    fn = (lambda step, name, shape: draws[(step, name)]) if method == "unoise" else None
+    spec = get_method(method).replace(iterations=20, early_stop=False)
+    r_c = cpu.optimize(x, 0.01, method=spec, seed=0, noise_fn=fn)
+    r_g = card.optimize(x, 0.01, method=spec, seed=0, noise_fn=fn)
+    assert np.max(np.abs(r_g["losses"] - r_c["losses"]) / np.abs(r_c["losses"])) <= 1e-3

@@ -117,7 +117,7 @@ def test_sga_trajectory_matches_jax(models, image):
     steps = 5
     ref = jopt.optimize(image, 0.01, method=JAX_SGA.replace(iterations=steps), seed=0)
     out = opt.optimize(image, 0.01, method=SGA.replace(iterations=steps), seed=0,
-                       gumbel_fn=jax_gumbel_fn(0, steps))
+                       noise_fn=jax_gumbel_fn(0, steps))
     assert set(out) == set(ref)
     assert out["losses"].shape == (steps,)
     assert_rel(out["losses"], ref["losses"])
@@ -153,8 +153,12 @@ def test_sga_noise_comes_from_the_seed(models, image):
 
 
 def test_unported_methods_raise():
-    for name in ("map", "ste", "unoise", "danneal"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    """Every method of nic_tpu's engine is ported; a name it does not know
+    (the bits-back scripts run another engine) raises, as in nic_tpu."""
+    for name in ("sga", "map", "ste", "unoise", "danneal"):
+        assert get_method(name).name == name
+    for name in ("bb_sga", "nope"):
+        with pytest.raises(ValueError, match="unknown method"):
             get_method(name)
 
 

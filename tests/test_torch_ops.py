@@ -83,8 +83,9 @@ def test_annealed_temperature_exp0(t):
 
 
 def test_annealed_temperature_other_schemes_not_ported():
-    with pytest.raises(NotImplementedError):
-        schedules.annealed_temperature(3, r=1e-3, ub=0.5, scheme="exp")
+    """Every scheme of nic_tpu is ported; an unknown one raises, as there."""
+    with pytest.raises(NotImplementedError, match="Unknown annealing scheme"):
+        schedules.annealed_temperature(3, r=1e-3, ub=0.5, scheme="cosine")
 
 
 @pytest.mark.parametrize("temperature", [0.5, 0.05])
