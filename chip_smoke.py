@@ -43,6 +43,18 @@ Phases, each printed with its elapsed seconds:
                counted from zero on each; unoise's and danneal's streams decode
                exactly, map writes none; and the first 20 steps of each method
                on a 64x64 crop, the card against the port's CPU path.
+ 11. bits-back - ``bb_plain``, ``bb_sga`` (2000 RD + 2000 rate steps) and
+               ``bb_no_sga`` (1000 rate steps) ``compress`` of the photos to a
+               BB-ANS stream and ``decompress`` of it, through the CLI (fp32) on
+               the lambda=0.01 bits-back checkpoint, K1's launches counted from
+               zero on each path: every stream decodes exactly with its initial
+               bits back; bb_plain's PSNR against nic_tpu's, its est. net bpp
+               (mean of 16 evaluation samples) and its stream's actual bpp (mean
+               of 32 seeds: a single stream's size is a draw, see
+               BB_ACTUAL_MEAN_RTOL) against nic_tpu's; bb_sga's rounded RD
+               objective and bb_no_sga's est. net bpp below bb_plain's; and the
+               first 20 steps of each phase on a 64x64 crop, the card against
+               the port's CPU path.
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -121,6 +133,55 @@ METHODS = ("map", "ste", "unoise", "danneal")
 # METHOD_STEPS Adam steps.
 METHOD_STEPS = 20
 METHOD_LOSS_RTOL = 1e-3
+
+# Phase 11, bits-back, on the lambda=0.01 bits-back checkpoint.
+BB_RUN = "mbt2018_bb-num_filters=192-lmbda=0.01"
+BB_SCRIPTS = ("bb_plain", "bb_sga", "bb_no_sga")
+# nic_tpu's `bb_plain compress` of the same photos, on the CPU (seed 0):
+#   JAX_PLATFORMS=cpu python -m nic_tpu --num_filters 192 \
+#     --checkpoint_dir checkpoints_synth3 bb_plain compress --results_dir r \
+#     mbt2018_bb-num_filters=192-lmbda=0.01 data_real/eval_photos.npy photos_bb.ntc
+#   -> 50265 bytes; est_bpp and psnr (means) in
+#      r/rd-bb_plain-lmbda=0.01+mbt2018_bb-...-input=eval_photos.npy.npz
+# Its est. net bpp is one posterior sample and its stream one draw of the
+# posterior pop, so both are held as means over seeds (below); these are
+# printed beside the port's. The PSNR is deterministic and held.
+JAX_BB_PLAIN = dict(est_bpp=0.5444669425487518, psnr=29.0546875,
+                    actual_bpp=50265 * 8 / (3 * 384 * 512))
+# nic_tpu's means over seeds, on the CPU: est. net bpp over the evaluation
+# samples of seeds 0..15 (one standard deviation 0.13 % of one sample), the
+# stream's actual bpp over seeds 0..31 (2.4 % of one stream):
+#   JAX_PLATFORMS=cpu python -c "import numpy as np; \
+#     from nic_tpu.train.trainer import TrainConfig, Trainer; \
+#     from nic_tpu.infer.bb import BBLatentOptimizer, BB_PLAIN; \
+#     from nic_tpu.coding.bb_codec import BitsBackCodec; \
+#     tr = Trainer(TrainConfig(model='mbt2018_bb', num_filters=192, \
+#       checkpoint_dir='checkpoints_synth3', runname='mbt2018_bb-num_filters=192-lmbda=0.01')); \
+#     _, p = tr.restore_params_only(); \
+#     x = np.load('data_real/eval_photos.npy').astype(np.float32) / 255.0; \
+#     opt = BBLatentOptimizer(tr.model, p); codec = BitsBackCodec(tr.model, p); \
+#     est = [float(opt.optimize(x, 0.01, spec=BB_PLAIN, seed=s)['est_bpp'].mean()) \
+#            for s in range(16)]; \
+#     act = [codec.compress(x, seed=s)[1]['actual_bpp'] for s in range(32)]; \
+#     print(float(np.mean(est)), float(np.std(est)), float(np.mean(act)), float(np.std(act)))"
+#   -> 0.5438225641846657 0.000727078908949264 0.6670116848415799 0.01572224405249451
+# nic_tpu's `bb_no_sga compress` of the same photos (1000 rate steps, one
+# run of its draws), on the CPU: printed beside the port's, not held:
+#   JAX_PLATFORMS=cpu python -m nic_tpu --num_filters 192 \
+#     --checkpoint_dir checkpoints_synth3 bb_no_sga compress --results_dir r \
+#     mbt2018_bb-num_filters=192-lmbda=0.01 data_real/eval_photos.npy
+#   -> est_bpp (mean) in r/rd-bb_no_sga-lmbda=0.01+mbt2018_bb-...-input=eval_photos.npy.npz
+JAX_BB_NO_SGA_EST = 0.46982138355573017
+JAX_BB_PLAIN_EST_MEAN = 0.5438225641846657
+JAX_BB_PLAIN_ACTUAL_MEAN = 0.6670116848415799
+BB_EST_SEEDS = 16
+BB_STREAM_SEEDS = 32
+# The means of 32 streams on each side differ by 0.6 % at one standard
+# deviation; 2 % is 3.3 of those (the port's CPU run: 0.06 % off).
+BB_ACTUAL_MEAN_RTOL = 0.02
+# The first steps of each phase on a 64x64 crop, card against CPU, fed the
+# same draws: each step's loss, max-norm relative (as METHOD_LOSS_RTOL).
+BB_STEPS = 20
 
 # K1 against its plain version, max-norm relative: fp32 accumulation in
 # another order (float32); bf16 output rounding, plain version in fp32 on
@@ -807,6 +868,168 @@ def check_methods_card_vs_cpu(model_cpu):
     return errs
 
 
+def run_bits_back(workdir):
+    """bb_plain, bb_sga and bb_no_sga compress of the photos to a BB-ANS
+    stream and its decompress, through the CLI, K1's launches counted from
+    zero on each path. The CLI exits non-zero when a decode does not return
+    its initial bits."""
+    import numpy as np
+
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    paths = {}
+    for script in BB_SCRIPTS:
+        common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, script]
+        stream = os.path.join(workdir, f"photos_{script}.ntc")
+        png = os.path.join(workdir, f"photos_{script}.png")
+        t = time.perf_counter()
+        gdn_cuda.launches = 0
+        out = cli_main(common + ["compress", BB_RUN, PHOTOS, stream, "--results_dir",
+                                 os.path.join(workdir, f"results_{script}")])
+        encode_launches = gdn_cuda.launches
+        gdn_cuda.launches = 0
+        dec = cli_main(common + ["decompress", BB_RUN, stream, png])
+        decode_launches = gdn_cuda.launches
+        check_exact(script, dec, png, out["pixels"])
+        res, timing, info = out["results"], out["timing"][0], out["info"]
+        for k, v in res.items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"{script} compress: {k} is not finite")
+        rd_ms = timing["rd_ms"] / max(timing["rd_steps"], 1)
+        rate_ms = timing["rate_ms"] / max(timing["rate_steps"], 1)
+        est = float(res["est_bpp"].mean())
+        path = dict(
+            rd_steps=timing["rd_steps"], rd_ms_per_step=rd_ms,
+            rate_steps=timing["rate_steps"], rate_ms_per_step=rate_ms,
+            est_bpp=est, est_y_bpp=float(res["est_y_bpp"].mean()),
+            est_z_bpp=float(res["est_z_bpp"].mean()),
+            est_bpp_back=float(res["est_bpp_back"].mean()),
+            actual_bpp=info["actual_bpp"], net_bpp=info["net_bpp"],
+            delta_bpp=info.get("delta_bpp"), bytes=out["bytes"],
+            init_bytes=info["init_bytes"], psnr=float(res["psnr"].mean()),
+            msssim=float(res["msssim"].mean()),
+            rd_objective=float(LMBDA * res["mse"].mean() + est),
+            k1_launches=encode_launches, k1_launches_decode=decode_launches,
+            encode_ms=out["codec_timing"], decode_ms=dec["timing"],
+            seconds=time.perf_counter() - t)
+        log(f"{script} compress: {timing['rd_steps']} RD steps at {rd_ms:.3f} ms/step, "
+            f"{timing['rate_steps']} rate steps at {rate_ms:.3f} ms/step (CUDA events); "
+            f"est net bpp {est!r} (y {path['est_y_bpp']!r}, z {path['est_z_bpp']!r}, "
+            f"back {path['est_bpp_back']!r}), PSNR {path['psnr']!r} dB, MS-SSIM "
+            f"{path['msssim']!r}; rounded RD objective {path['rd_objective']!r}")
+        log(f"{script} stream: {out['bytes']} bytes = actual {info['actual_bpp']!r} bpp, "
+            f"net {info['net_bpp']!r} bpp, initial bits {info['init_bytes']} bytes"
+            + (f", posterior deltas {info['delta_bpp']!r} bpp" if "delta_bpp" in info
+               else "")
+            + f"; decompress exact, initial bits recovered")
+        log(f"{script}: codec ms encode {fmt_timing(out['codec_timing'])}; decode "
+            f"{fmt_timing(dec['timing'])}; K1 launches encode path {encode_launches}, "
+            f"decode path {decode_launches}; {path['seconds']:.1f} s")
+        steps = timing["rd_steps"] + timing["rate_steps"]
+        if encode_launches < 3 * timing["rd_steps"] + 6 or decode_launches < 9:
+            raise AssertionError(f"{script}: K1 launched {encode_launches} times encoding "
+                                 f"({steps} steps), {decode_launches} decoding")
+        paths[script] = path
+
+    plain = paths["bb_plain"]
+    d_psnr = abs(plain["psnr"] - JAX_BB_PLAIN["psnr"])
+    log(f"bb_plain against nic_tpu's CPU run (seed 0): PSNR {plain['psnr']!r} vs "
+        f"{JAX_BB_PLAIN['psnr']!r} dB (diff {d_psnr:.2e}, tolerance {PSNR_ATOL_DB:g}); "
+        f"one sample each: est net bpp {plain['est_bpp']!r} vs {JAX_BB_PLAIN['est_bpp']!r}, "
+        f"actual bpp {plain['actual_bpp']!r} vs {JAX_BB_PLAIN['actual_bpp']!r}")
+    if d_psnr > PSNR_ATOL_DB:
+        raise AssertionError("bb_plain PSNR disagrees with nic_tpu's")
+    if not paths["bb_sga"]["rd_objective"] < plain["rd_objective"]:
+        raise AssertionError("bb_sga did not lower the RD objective below bb_plain's")
+    if not paths["bb_no_sga"]["est_bpp"] < plain["est_bpp"]:
+        raise AssertionError("bb_no_sga did not lower the est. net bpp below bb_plain's")
+    log(f"bb_sga RD objective {paths['bb_sga']['rd_objective']!r} < bb_plain's "
+        f"{plain['rd_objective']!r}; bb_no_sga est net bpp "
+        f"{paths['bb_no_sga']['est_bpp']!r} < bb_plain's {plain['est_bpp']!r} (same y*; "
+        f"nic_tpu's bb_no_sga on the CPU {JAX_BB_NO_SGA_EST!r})")
+    plain.update(check_bb_plain_means())
+    return paths
+
+
+def check_bb_plain_means():
+    """bb_plain on the card: the est. net bpp over BB_EST_SEEDS evaluation
+    samples and the stream's actual bpp over BB_STREAM_SEEDS seeds, against
+    nic_tpu's means over the same seeds."""
+    import numpy as np
+
+    from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.coding.bb_codec import BitsBackCodec
+    from nic_tpu_torch.infer.bb import BB_PLAIN, BBLatentOptimizer
+
+    x = np.load(PHOTOS).astype(np.float32) / 255.0
+    _, model = load_model(CKPT_DIR, BB_RUN, 192, "cuda", model="mbt2018_bb")
+    opt = BBLatentOptimizer(model, "cuda")
+    est = [float(opt.optimize(x, LMBDA, BB_PLAIN, seed=s)["est_bpp"].mean())
+           for s in range(BB_EST_SEEDS)]
+    codec = BitsBackCodec(model, "cuda")
+    actual = []
+    for s in range(BB_STREAM_SEEDS):
+        blob, info = codec.compress(x, seed=s)
+        actual.append(info["actual_bpp"])
+    init_ok = codec.decompress(blob)[1]
+    est_mean, actual_mean = float(np.mean(est)), float(np.mean(actual))
+    d_est = abs(est_mean - JAX_BB_PLAIN_EST_MEAN) / JAX_BB_PLAIN_EST_MEAN
+    d_act = abs(actual_mean - JAX_BB_PLAIN_ACTUAL_MEAN) / JAX_BB_PLAIN_ACTUAL_MEAN
+    log(f"bb_plain over seeds on the card: est net bpp mean of {BB_EST_SEEDS} "
+        f"{est_mean!r} (sd {np.std(est):.2e}) vs nic_tpu's {JAX_BB_PLAIN_EST_MEAN!r} "
+        f"(rel diff {d_est:.2e}, tolerance {BPP_RTOL:g}); actual bpp mean of "
+        f"{BB_STREAM_SEEDS} streams {actual_mean!r} (sd {np.std(actual):.2e}, min "
+        f"{min(actual)!r}, max {max(actual)!r}) vs nic_tpu's {JAX_BB_PLAIN_ACTUAL_MEAN!r} "
+        f"(rel diff {d_act:.2e}, tolerance {BB_ACTUAL_MEAN_RTOL:g})")
+    if not init_ok:
+        raise AssertionError("bb_plain: the last seed's stream did not return its bits")
+    if d_est > BPP_RTOL or d_act > BB_ACTUAL_MEAN_RTOL:
+        raise AssertionError("bb_plain's est. or actual bpp disagrees with nic_tpu's")
+    return dict(est_bpp_mean=est_mean, est_bpp_seeds=BB_EST_SEEDS,
+                actual_bpp_mean=actual_mean, actual_bpp_sd=float(np.std(actual)),
+                stream_seeds=BB_STREAM_SEEDS)
+
+
+def check_bb_card_vs_cpu():
+    """The first BB_STEPS steps of each bits-back phase on a 64x64 crop, on
+    the card and on the port's CPU path, fed the same draws."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.infer.bb import BB_SGA, BBLatentOptimizer
+
+    x = np.load(PHOTOS)[:2, 100:164, 200:264].astype(np.float32) / 255.0
+    card = BBLatentOptimizer(load_model(CKPT_DIR, BB_RUN, 192, "cpu",
+                                        model="mbt2018_bb")[1], "cuda")
+    cpu = BBLatentOptimizer(load_model(CKPT_DIR, BB_RUN, 192, "cpu",
+                                       model="mbt2018_bb")[1], "cpu")
+    rng = np.random.default_rng(0)
+    draws = {}
+
+    def noise_fn(step, name, shape):
+        if (step, name) not in draws:
+            a = rng.gumbel(size=shape) if name == "gumbel" else rng.standard_normal(shape)
+            draws[(step, name)] = torch.from_numpy(a.astype(np.float32))
+        return draws[(step, name)]
+
+    spec = BB_SGA.replace(rd_iterations=BB_STEPS, rate_iterations=BB_STEPS)
+    r_c = cpu.optimize(x, LMBDA, spec, seed=0, noise_fn=noise_fn)
+    r_g = card.optimize(x, LMBDA, spec, seed=0, noise_fn=noise_fn)
+    errs = {}
+    for k in ("rd_losses", "rate_losses"):
+        errs[k] = float(np.max(np.abs(r_g[k] - r_c[k]) / np.abs(r_c[k])))
+    e_bpp = float(np.max(np.abs(r_g["est_bpp"] - r_c["est_bpp"]) / r_c["est_bpp"]))
+    log(f"bits-back: first {BB_STEPS} steps of each phase on 64x64 crops, card vs CPU: "
+        f"phase 1 loss rel err {errs['rd_losses']:.2e}, phase 2 {errs['rate_losses']:.2e} "
+        f"(tolerance {METHOD_LOSS_RTOL:g}); est net bpp rel diff {e_bpp:.2e}; y* "
+        f"{'equal' if np.array_equal(r_g['y'], r_c['y']) else 'differs'}")
+    if not max(errs.values()) <= METHOD_LOSS_RTOL:
+        raise AssertionError("bits-back: the card's steps disagree with the CPU's")
+    return errs
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -897,6 +1120,12 @@ def main():
         for script, err in method_errs.items():
             method_paths[script]["card_vs_cpu_loss_rel_err"] = err
         log("methods done")
+
+        t = time.perf_counter()
+        bb_paths = run_bits_back(workdir)
+        bb_errs = check_bb_card_vs_cpu()
+        bb_paths["bb_sga"].update(card_vs_cpu_loss_rel_err=bb_errs)
+        log(f"bits-back done in {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir)
 
@@ -910,7 +1139,8 @@ def main():
             shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32", shapes=k1_timings,
             launches_by_path=dict(
                 sga=k1_launches, sga_bf16=k1_bf16_launches,
-                **{m: method_paths[m]["k1_launches"] for m in METHODS}),
+                **{m: method_paths[m]["k1_launches"] for m in METHODS},
+                **{b: bb_paths[b]["k1_launches"] for b in BB_SCRIPTS}),
             max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
@@ -923,7 +1153,7 @@ def main():
              "sga bf16 (LatentOptimizer)": bf16_path,
              "bf16 amortized": dict(est_bpp=float(amortized_bf16["est_bpp"].mean()),
                                     psnr=float(amortized_bf16["psnr"].mean())),
-             **method_paths}
+             **method_paths, **bb_paths}
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,14 +5,21 @@
       {sga,map,ste,unoise,danneal} compress mbt2018-num_filters=192-lmbda=0.01 \\
       <input.png|batch.npy> [out.ntc]
   python -m nic_tpu_torch ... mbt2018 compress <runname> <input> [out.ntc]
+  python -m nic_tpu_torch ... {bb_sga,bb_no_sga,bb_plain} compress \\
+      mbt2018_bb-num_filters=192-lmbda=0.01 <input> [out.ntc]
   python -m nic_tpu_torch ... <script> decompress <runname> <in.ntc> [out.png]
 
 It takes nic_tpu's command line. It runs ``compress`` of the five
 iterative methods (sga, map, ste, unoise, danneal: estimated rates, and a
 real bitstream when an output file is named, except for map and unoise
 with ``--unoise_mean_source noisy_z``, whose latents no decoder can
-reproduce) and of ``mbt2018`` (amortized latents, real bitstream), and
-their ``decompress``; every other script, subcommand or flag exits non-zero
+reproduce), of ``mbt2018`` (amortized latents, real bitstream) and of the
+three bits-back methods on the ``mbt2018_bb`` model (estimated net rates,
+and a BB-ANS stream when an output file is named), and their
+``decompress``; a bits-back decode whose initial bits do not come back
+exits non-zero. As in nic_tpu, the bits-back scripts ignore ``--verbose``,
+``--distortion``, ``--unoise_mean_source``, ``--save_opt_record`` and
+``--save_reconstruction``. Every other script, subcommand or flag exits non-zero
 with "not ported yet (ROADMAP.md)". It runs on the card unless ``--device
 cpu`` is given, and raises when there is no card. Streams decode with the
 same code on the same device type: ``decompress`` takes the ``--device``
@@ -36,8 +43,9 @@ METHOD_SCRIPTS = ("sga", "map", "ste", "unoise", "danneal")
 BB_SCRIPTS = ("bb_sga", "bb_no_sga", "bb_plain")
 ALL_SCRIPTS = MODELS + METHOD_SCRIPTS + BB_SCRIPTS
 FIELDS = ("mse", "psnr", "msssim", "msssim_db", "est_bpp", "est_y_bpp", "est_z_bpp")
+BB_FIELDS = FIELDS + ("est_bpp_back",)
 # Scripts whose compress and decompress the port runs.
-PORTED = ("mbt2018",) + METHOD_SCRIPTS
+PORTED = ("mbt2018",) + METHOD_SCRIPTS + BB_SCRIPTS
 # --verbose probes the rounded objective every this many steps.
 VERBOSE_PROBE_EVERY = 100
 
@@ -120,11 +128,15 @@ def _batches(X):
 
 
 def _load(args):
+    """The device and the run's model: MBT2018, or its bits-back variant
+    for the bits-back scripts."""
     from nic_tpu_torch.checkpoint import load_model
 
     device = cfg.resolve_device(args.device)
-    _, model = load_model(args.checkpoint_dir, args.runname, args.num_filters, device)
-    return device, model
+    model = "mbt2018_bb" if args.script in BB_SCRIPTS else "mbt2018"
+    _, net = load_model(args.checkpoint_dir, args.runname, args.num_filters, device,
+                        model=model)
+    return device, net
 
 
 def _write(path: str, blob: bytes, num_pixels: int) -> None:
@@ -223,6 +235,8 @@ def run_compress(args) -> Dict[str, Any]:
     lmbda = _resolve_lmbda(args)
     if args.script == "mbt2018":
         return _compress_amortized(args, X)
+    if args.script in BB_SCRIPTS:
+        return _compress_bits_back(args, X, lmbda)
     device, model = _load(args)
     opt = LatentOptimizer(model, device)
     spec = get_method(args.script).replace(
@@ -280,22 +294,101 @@ def run_compress(args) -> Dict[str, Any]:
     return dict(results=results, **out)
 
 
+def _compress_bits_back(args, X, lmbda: float) -> Dict[str, Any]:
+    """``bb_sga``, ``bb_no_sga`` or ``bb_plain compress``: optimize each
+    batch's posterior (and, for bb_sga, its latents), save the RD results
+    with the bits-back term, and write one BB-ANS stream of the whole input
+    when an output file is named: bb_plain against the amortized
+    posterior, the others with their optimized posterior made decodable by
+    quantized deltas (charged to the rate). Returns the saved results, each
+    batch's phase timing (``timing``: steps and device ms of each phase),
+    and, when a stream was written, its ``info``, the uint8 reconstruction
+    the decoder gives (``pixels``), the codec's timing and the byte count.
+    """
+    from nic_tpu_torch.evaluation.results import save_rd_results
+    from nic_tpu_torch.infer.bb import BB_METHODS, BBLatentOptimizer
+
+    device, model = _load(args)
+    opt = BBLatentOptimizer(model, device)
+    spec = BB_METHODS[args.script]
+    if args.script == "bb_sga":
+        spec = spec.replace(rd_iterations=args.sga_its, annealing_rate=args.annealing_rate,
+                            t0=args.t0)
+    results = {k: [] for k in BB_FIELDS}
+    latents = {"y": [], "z_mean": [], "z_logvar": []}
+    timing = []
+    for batch in _batches(X):
+        res = opt.optimize(batch, lmbda, spec=spec, seed=args.seed)
+        for k in BB_FIELDS:
+            results[k].extend(np.asarray(res[k]).tolist())
+        for k in latents:
+            latents[k].append(res[k])
+        t = opt.last_timing
+        timing.append(t)
+        print(f"{args.script}: {t['rd_steps']} RD steps in {t['rd_ms']:.1f} ms, "
+              f"{t['rate_steps']} rate steps in {t['rate_ms']:.1f} ms on "
+              f"{batch.shape[0]} image(s) ({device.type})")
+    out = dict(timing=timing)
+    if args.output_file:
+        from nic_tpu_torch.coding.bb_codec import BitsBackCodec
+
+        codec = BitsBackCodec(model, device)
+        if args.script == "bb_plain":
+            blob, info = codec.compress(X, seed=args.seed)
+            extra = ""
+        else:
+            blob, info = codec.compress_optimized(
+                X, *(np.concatenate(latents[k]) for k in ("y", "z_mean", "z_logvar")),
+                seed=args.seed)
+            extra = f", posterior deltas {info['delta_bpp']:.4f} bpp"
+        with open(args.output_file, "wb") as f:
+            f.write(blob)
+        print(f"Wrote {args.output_file}: {len(blob)} bytes (actual "
+              f"{info['actual_bpp']:.4f} bpp, net bits-back {info['net_bpp']:.4f} "
+              f"bpp{extra})")
+        out.update(info=info, pixels=codec.last_pixels, codec_timing=codec.last_timing,
+                   bytes=len(blob))
+    results = {k: np.asarray(v) for k, v in results.items()}
+    save_rd_results(results, args.results_dir, args.script, args.runname,
+                    args.input_file, lmbda)
+    return dict(results=results, **out)
+
+
+def _decompress_bits_back(args, model, device, blob: bytes):
+    """A BB-ANS stream: bb_plain's through ``decompress``, the optimized
+    ones through ``decompress_optimized``; exits non-zero when the initial
+    bits do not come back."""
+    from nic_tpu_torch.coding.bb_codec import BitsBackCodec
+
+    codec = BitsBackCodec(model, device)
+    if args.script == "bb_plain":
+        x_hat, init_ok = codec.decompress(blob)
+    else:
+        x_hat, init_ok = codec.decompress_optimized(blob)
+    if not init_ok:
+        sys.exit("bits-back integrity check failed: initial bits not recovered")
+    return x_hat, codec.last_timing
+
+
 def run_decompress(args) -> Dict[str, Any]:
-    """Decode a stream written by ``mbt2018 compress`` or a method's
-    ``compress`` (the codec dispatches on the stream's mode) and write the first image
-    as a PNG. Returns the decoded float pixels, the PNG's path and the
-    codec's timing."""
+    """Decode a stream written by ``mbt2018 compress``, a method's
+    ``compress`` (the codec dispatches on the stream's mode) or a bits-back
+    script's ``compress``, and write the first image as a PNG. Returns the
+    decoded float pixels, the PNG's path and the codec's timing."""
     from nic_tpu_torch.coding.codec import HyperpriorCodec
 
     with open(args.input_file, "rb") as f:
         blob = f.read()
     device, model = _load(args)
-    codec = HyperpriorCodec(model, device)
-    x_hat = codec.decompress(blob)
+    if args.script in BB_SCRIPTS:
+        x_hat, timing = _decompress_bits_back(args, model, device, blob)
+    else:
+        codec = HyperpriorCodec(model, device)
+        x_hat, timing = codec.decompress(blob), codec.last_timing
     out = args.output_file or (args.input_file + ".png")
     write_png(out, x_hat[0])
     print(f"Wrote {out}")
-    return dict(x_hat=x_hat, path=out, timing=codec.last_timing)
+    return dict(x_hat=x_hat, path=out, timing=timing)
 
 
 def main(argv: Optional[List[str]] = None):

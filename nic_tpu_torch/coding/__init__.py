@@ -1,2 +1,2 @@
 """Entropy coding of the port: rANS (``csrc/rans.cpp``), CDF tables, the
-bitstream container and the hyperprior codec."""
+bitstream container, the hyperprior codec and the bits-back (BB-ANS) codec."""

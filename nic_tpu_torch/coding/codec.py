@@ -107,26 +107,22 @@ def _split(blob: bytes, sizes):
     return outs
 
 
-class HyperpriorCodec:
-    """Bitstream encoder/decoder around a trained MeanScaleHyperprior.
-
-    The model is moved to ``device`` (the card unless the caller asks for
-    the CPU). ``last_timing`` holds the milliseconds of the last public
+class DeviceCodec:
+    """What the codecs share: the model on ``device`` (the card unless the
+    caller asks for the CPU), the rANS coder, the Gaussian scale table and
+    the timing. ``last_timing`` holds the milliseconds of the last public
     call, split into ``device`` (device passes and their transfers, host
     clock after the copies that end them), ``rans`` (host coding) and
     ``tables`` (building a CDF table at first use). ``last_pixels`` holds
-    the uint8 reconstruction that decoding the last stream from
-    ``compress`` or ``compress_optimized`` gives (times 255), computed by
-    the decoder's own passes.
+    the uint8 reconstruction that decoding the last stream written gives
+    (times 255), computed by the decoder's own passes.
     """
 
-    def __init__(self, model: MeanScaleHyperprior, device="cuda"):
+    def __init__(self, model: torch.nn.Module, device="cuda"):
         config.set_fp32_precision()
         self.device = config.resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.coder = RansCoder()
-        self._z_table: Optional[CdfTable] = None
-        self._z_int_table: Optional[CdfTable] = None
         self._y_table: Optional[CdfTable] = None
         self.last_timing: Dict[str, float] = {}
         self.last_pixels: Optional[np.ndarray] = None
@@ -143,12 +139,30 @@ class HyperpriorCodec:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    # ------------------------------------------------------------- tables
-
     def _table(self, make_pmf) -> CdfTable:
         with self._phase("tables"):
             pmf = [_host(t) if torch.is_tensor(t) else t for t in make_pmf()]
             return CdfTable.from_pmf(*pmf)
+
+    def y_table(self) -> CdfTable:
+        """Per-scale-level Gaussian CDF tables."""
+        if self._y_table is None:
+            self._y_table = self._table(_GC.pmfs_for_coding)
+        return self._y_table
+
+
+class HyperpriorCodec(DeviceCodec):
+    """Bitstream encoder/decoder around a trained MeanScaleHyperprior
+    (``last_timing`` and ``last_pixels``: see ``DeviceCodec``; the latter
+    is set by ``compress``, ``compress_latents`` and ``compress_optimized``).
+    """
+
+    def __init__(self, model: MeanScaleHyperprior, device="cuda"):
+        super().__init__(model, device)
+        self._z_table: Optional[CdfTable] = None
+        self._z_int_table: Optional[CdfTable] = None
+
+    # ------------------------------------------------------------- tables
 
     def z_table(self) -> CdfTable:
         """Factorized-prior CDF table over the median-centered integer grid."""
@@ -163,12 +177,6 @@ class HyperpriorCodec:
             self._z_int_table = self._table(
                 lambda: self.model.pmf_for_coding(grid="integer"))
         return self._z_int_table
-
-    def y_table(self) -> CdfTable:
-        """Per-scale-level Gaussian CDF tables."""
-        if self._y_table is None:
-            self._y_table = self._table(_GC.pmfs_for_coding)
-        return self._y_table
 
     def _z_rows(self, shape):
         return np.broadcast_to(np.arange(shape[-1], dtype=np.int32), shape)

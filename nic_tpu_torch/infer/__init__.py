@@ -1,1 +1,2 @@
-"""Iterative inference over the latents: Adam, method specs and the engine."""
+"""Iterative inference over the latents: Adam, method specs, the engine and
+the bits-back engine."""

@@ -164,7 +164,18 @@ def _eval_transmitted(model, x, latents: Latents, compute_msssim: bool):
     num_pixels = x.shape[1] * x.shape[2]
     y_bpp = -torch.sum(torch.log(y_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
     z_bpp = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
+    return dict(
+        **distortion_metrics(x, x_tilde, compute_msssim),
+        est_bpp=y_bpp + z_bpp,
+        est_y_bpp=y_bpp,
+        est_z_bpp=z_bpp,
+        x_tilde=x_tilde,
+    )
 
+
+def distortion_metrics(x, x_tilde, compute_msssim: bool) -> Dict[str, torch.Tensor]:
+    """Per-image mse, psnr, msssim and msssim_db of the reconstruction
+    rounded to 8 bits (NaN MS-SSIM unless ``compute_msssim``)."""
     x255 = x * 255.0
     xt255 = torch.round(torch.clamp(x_tilde, 0.0, 1.0) * 255.0)
     mse = torch.mean(torch.square(x255 - xt255), dim=(1, 2, 3))
@@ -175,19 +186,27 @@ def _eval_transmitted(model, x, latents: Latents, compute_msssim: bool):
     else:
         ms = torch.full(x.shape[:1], float("nan"), device=x.device)
         ms_db = torch.full(x.shape[:1], float("nan"), device=x.device)
-    return dict(
-        mse=mse,
-        psnr=psnr,
-        msssim=ms,
-        msssim_db=ms_db,
-        est_bpp=y_bpp + z_bpp,
-        est_y_bpp=y_bpp,
-        est_z_bpp=z_bpp,
-        x_tilde=x_tilde,
-    )
+    return dict(mse=mse, psnr=psnr, msssim=ms, msssim_db=ms_db)
 
 
-def _to_numpy(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def device_timer(device: torch.device):
+    """Start a timer; returns a callable giving the elapsed ms. CUDA events
+    on the card, the host clock on the CPU."""
+    if device.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+
+        def stop():
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        return stop
+    t0 = time.perf_counter()
+    return lambda: (time.perf_counter() - t0) * 1e3
+
+
+def to_numpy(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
 
 
@@ -213,22 +232,6 @@ class LatentOptimizer:
 
     def amortized_init(self, x):
         return _amortized_init(self.model, self._tensor(x))
-
-    def _timer(self):
-        """Start a timer; returns a callable giving the elapsed ms. CUDA
-        events on the card, the host clock on the CPU."""
-        if self.device.type == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-
-            def stop():
-                end.record()
-                end.synchronize()
-                return start.elapsed_time(end)
-
-            return stop
-        t0 = time.perf_counter()
-        return lambda: (time.perf_counter() - t0) * 1e3
 
     def optimize(self, x, lmbda: float, method: MethodSpec = SGA, seed: int = 0,
                  noise_fn: Optional[NoiseFn] = None,
@@ -267,7 +270,7 @@ class LatentOptimizer:
         def draw(it, name, v):
             return noise_fn(it, name, tuple(v.shape) + pair).to(self.device)
 
-        stop = self._timer()
+        stop = device_timer(self.device)
         for it in range(its):
             temperature = annealed_temperature(
                 it, r=method.annealing_rate, ub=method.temperature_ub,
@@ -321,7 +324,7 @@ class LatentOptimizer:
             z=transmitted.z.cpu().numpy(),
             losses=losses.cpu().numpy(),
             rounded_losses=probes.cpu().numpy(),
-            **_to_numpy(metrics),
+            **to_numpy(metrics),
         )
 
     def eval_rounded(self, x, y, z) -> Dict[str, np.ndarray]:
@@ -329,7 +332,7 @@ class LatentOptimizer:
         x = self._tensor(x)
         latents = Latents(y=torch.round(self._tensor(y)), z=torch.round(self._tensor(z)))
         compute_msssim = min(x.shape[1], x.shape[2]) >= MSSSIM_MIN_SIDE
-        return _to_numpy(_eval_transmitted(self.model, x, latents, compute_msssim))
+        return to_numpy(_eval_transmitted(self.model, x, latents, compute_msssim))
 
     @torch.no_grad()
     def eval_amortized(self, x) -> Dict[str, np.ndarray]:
@@ -340,4 +343,4 @@ class LatentOptimizer:
         metrics = _eval_transmitted(
             self.model, x, Latents(y=out["y_tilde"], z=out["z_tilde"]), compute_msssim
         )
-        return _to_numpy(metrics)
+        return to_numpy(metrics)

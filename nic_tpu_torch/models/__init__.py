@@ -1,1 +1,1 @@
-"""The MBT2018 mean-scale hyperprior and its parts."""
+"""The MBT2018 mean-scale hyperprior, its bits-back variant and their parts."""

@@ -1,6 +1,15 @@
 """Density helpers for the entropy models (counterpart of nic_tpu/ops/stats.py)."""
 
+import math
+
 import torch
+
+LOG2PI = math.log(2.0 * math.pi)
+
+
+def log_normal_pdf(sample, mean, logvar):
+    """Elementwise Normal log-density of ``sample`` under N(mean, exp(logvar))."""
+    return -0.5 * ((sample - mean) ** 2 * torch.exp(-logvar) + logvar + LOG2PI)
 
 
 def gaussian_standardized_cumulative(x):

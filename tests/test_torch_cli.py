@@ -180,15 +180,15 @@ def test_default_device_raises_without_a_card(workdir, monkeypatch):
 @pytest.mark.parametrize("extra,script,before", [
     (("--quant", "int8"), "mbt2018", ()),
     (("--data_parallel",), "map", ()),
-    ((), "bb_sga", ()),
+    (("--data_parallel",), "bb_sga", ()),
     (("out.ntc", "--quant", "int8"), "sga", ()),
     (("--data_parallel",), "sga", ()),
     (("--spatial",), "sga", ()),
     (("--spatial",), "unoise", ()),
     (("--quant", "int8"), "sga", ()),
     (("--quant", "int8"), "danneal", ()),
-    ((), "bb_no_sga", ("--verbose",)),
-    ((), "bb_plain", ()),
+    (("--quant", "int8"), "bb_no_sga", ("--verbose",)),
+    (("--spatial",), "bb_plain", ()),
 ])
 def test_unported_parts_exit_nonzero(workdir, extra, script, before):
     argv = ["--device", "cpu", *before] + _argv(workdir, workdir / "res_x", *extra,
@@ -200,7 +200,7 @@ def test_unported_parts_exit_nonzero(workdir, extra, script, before):
 
 @pytest.mark.parametrize("argv", [
     ["sga", "train", "--train_glob", "x/*.png"],
-    ["bb_sga", "decompress", "run", "in.ntc"],
+    ["mbt2018_bb", "train", "--train_glob", "x/*.png"],
     ["learned_prior", "--num_channels", "4", "--data_path", "x.npy"],
 ])
 def test_unported_commands_exit_nonzero(argv):

@@ -413,3 +413,122 @@ def test_method_first_steps_card_vs_cpu(method):
     r_c = cpu.optimize(x, 0.01, method=spec, seed=0, noise_fn=fn)
     r_g = card.optimize(x, 0.01, method=spec, seed=0, noise_fn=fn)
     assert np.max(np.abs(r_g["losses"] - r_c["losses"]) / np.abs(r_c["losses"])) <= 1e-3
+
+
+def _committed_bb_model(device):
+    import os
+
+    from nic_tpu_torch.checkpoint import load_model
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    _, model = load_model(os.path.join(root, "checkpoints_synth3"),
+                          "mbt2018_bb-num_filters=192-lmbda=0.01", 192, device,
+                          model="mbt2018_bb")
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chained", [True, False])
+def test_bb_roundtrip_on_the_card(chained):
+    """BB-ANS on the card: bb_plain's stream and a bb_no_sga-optimized
+    posterior's stream of two 64x64 photo crops decode exactly to the
+    encoder's pixels, with the initial bits back, and g_s runs K1."""
+    _need_card()
+    import numpy as np
+
+    from nic_tpu_torch.coding.bb_codec import BitsBackCodec
+    from nic_tpu_torch.infer.bb import BB_NO_SGA, BBLatentOptimizer
+
+    x = _photo_crops()
+    model = _committed_bb_model("cuda")
+    codec = BitsBackCodec(model, "cuda")
+    before = gdn_cuda.launches
+    blob, info = codec.compress(x, seed=1, chained=chained)
+    assert gdn_cuda.launches >= before + 3 + 2 * 3
+    pixels = codec.last_pixels
+    x_hat, init_ok = codec.decompress(blob)
+    assert init_ok and 0 < info["net_bpp"] < info["actual_bpp"]
+    np.testing.assert_array_equal(np.round(x_hat * 255.0).astype(np.uint8), pixels)
+
+    res = BBLatentOptimizer(model, "cuda").optimize(
+        x, 0.01, BB_NO_SGA.replace(rate_iterations=5), seed=0)
+    blob, info = codec.compress_optimized(x, res["y"], res["z_mean"], res["z_logvar"],
+                                          seed=2, chained=chained)
+    pixels = codec.last_pixels
+    x_hat, init_ok = codec.decompress_optimized(blob)
+    assert init_ok and info["delta_bpp"] > 0
+    np.testing.assert_array_equal(np.round(x_hat * 255.0).astype(np.uint8), pixels)
+
+
+@pytest.mark.cuda
+def test_bb_phases_first_steps_card_vs_cpu():
+    """bb_sga's first 20 steps of each phase on 64x64 crops, fed the same
+    draws: each step's loss on the card against the port's CPU path within
+    1e-3 (fp32 sums in another order, carried through 20 Adam steps)."""
+    _need_card()
+    import numpy as np
+
+    from nic_tpu_torch.infer.bb import BB_SGA, BBLatentOptimizer
+
+    x = _photo_crops()
+    rng = np.random.default_rng(2)
+    draws = {}
+
+    def noise_fn(step, name, shape):
+        if (step, name) not in draws:
+            a = rng.gumbel(size=shape) if name == "gumbel" else rng.standard_normal(shape)
+            draws[(step, name)] = torch.from_numpy(a.astype(np.float32))
+        return draws[(step, name)]
+
+    spec = BB_SGA.replace(rd_iterations=20, rate_iterations=20)
+    r_c = BBLatentOptimizer(_committed_bb_model("cpu"), "cpu").optimize(
+        x, 0.01, spec, seed=0, noise_fn=noise_fn)
+    r_g = BBLatentOptimizer(_committed_bb_model("cuda"), "cuda").optimize(
+        x, 0.01, spec, seed=0, noise_fn=noise_fn)
+    for k in ("rd_losses", "rate_losses"):
+        assert np.max(np.abs(r_g[k] - r_c[k]) / np.abs(r_c[k])) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_bb_steps_make_no_host_sync():
+    """Three steps of each bits-back phase on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, built from the engine's own
+    pieces: a host sync in a step raises."""
+    _need_card()
+    import numpy as np
+
+    from nic_tpu_torch.infer.adam import adam_init, adam_update
+    from nic_tpu_torch.infer.bb import BB_SGA, _rate_loss, _rd_loss
+    from nic_tpu_torch.ops.quantize import draw_gumbel
+    from nic_tpu_torch.ops.schedules import annealed_temperature
+
+    model = _committed_bb_model("cuda")
+    x = torch.from_numpy(_photo_crops()).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        y = model.analyze(x)
+        state = [t.clone().requires_grad_(True) for t in (y, *model.hyper_posterior(y))]
+    adam = adam_init(state)
+    losses = torch.zeros(6, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in range(3):
+            t = annealed_temperature(it, r=BB_SGA.annealing_rate, ub=BB_SGA.temperature_ub,
+                                     scheme=BB_SGA.annealing_scheme, t0=BB_SGA.t0)
+            gumbel = draw_gumbel(tuple(y.shape) + (2,), gen, "cuda")
+            eps = torch.randn(state[1].shape, generator=gen, device="cuda")
+            loss = _rd_loss(model, *state, x, 0.01, t, gumbel, eps)
+            adam = adam_update(state, torch.autograd.grad(loss, state), adam, BB_SGA.rd_lr)
+            losses[it] = loss.detach()
+        y_tilde = torch.round(state[0].detach())
+        post = [t.detach().clone().requires_grad_(True) for t in state[1:]]
+        adam = adam_init(post)
+        for it in range(3):
+            eps = torch.randn(post[0].shape, generator=gen, device="cuda")
+            loss = _rate_loss(model, y_tilde, *post, eps, 64 * 64)
+            adam = adam_update(post, torch.autograd.grad(loss, post), adam, BB_SGA.rate_lr)
+            losses[3 + it] = loss.detach()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.all(np.isfinite(losses.cpu().numpy()))
