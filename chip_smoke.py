@@ -55,6 +55,27 @@ Phases, each printed with its elapsed seconds:
                objective and bb_no_sga's est. net bpp below bb_plain's; and the
                first 20 steps of each phase on a 64x64 crop, the card against
                the port's CPU path.
+ 12. training - (a) K1's forward (GDN and IGDN, fp32) against its plain
+               version at the training step's three shapes (M = 131072, 32768,
+               8192), and its backward, ``gdn_backward``'s dx, dgamma and dbeta
+               (torch matmuls, as nic_tpu's XLA ``_gdn_bwd``), against autograd
+               through the plain version at M = 131072 and 8192, and through a
+               fresh GDN layer's reparameterization;
+               (b) the 3 photos written as PNGs, the training corpus; (c)
+               ``mbt2018 train`` in-process from a fresh init at nf=192, batch
+               8, patch 256, lambda 0.01, 200 steps, K1's launches counted from
+               zero (6 per step), ms per step, the losses falling, the run's
+               files; (d) a resume to step 210; (e) 3 steps at batch 2, patch
+               128 from the lambda=0.01 checkpoint, the card against the port's
+               CPU path on the same batches and noise: the first step's
+               gradients, each step's loss, the parameters; (f) 20 steps from
+               that checkpoint, then ``mbt2018 compress`` -> ``decompress`` of
+               the photos from the new run: exact, its rounded RD objective on
+               the photos at least 5 % below the checkpoint's, where the same
+               steps with zeroed or negated gradients must not reach; (g) ``mbt2018_bb train``, 20 steps from
+               the bits-back checkpoint, and its card against CPU steps as (e);
+               (h) ``learned_prior`` on the card, 100 iterations on the photos'
+               y: its loss falls.
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -218,6 +239,50 @@ BOUND_DEFINITION = (
     "float32 (3xTF32) P = 3 at 495 TFLOP/s TF32 (for the earlier CUDA-core kernels: P = 1 "
     "at 67 TFLOP/s, the CUDA cores' fp32, printed as bound_cuda_core_ms)")
 
+# Phase 12, training: nic_tpu's default configuration (nf=192, batch 8,
+# patch 256), float32. K1's rows in a step: g_a's GDN at 8 x 128^2, 64^2 and
+# 32^2, g_s's IGDN at the same three.
+TRAIN_ROWS = (8192, 32768, 131072)
+TRAIN_STEPS = 200
+TRAIN_RESUME_STEP = 210
+# Steps from a committed checkpoint before serving it (f), and of the
+# bits-back model (g).
+TRAIN_FT_STEPS = 20
+# K1's backward (gdn_backward: torch matmuls on K1's saved inputs) against
+# autograd through its plain version, each gradient's L2 error over its L2
+# norm: the repo's float32 gradient tolerance (dgamma sums over M rows in
+# another order). K1's forward at the training shapes: K1_RTOL.
+K1_VJP_RTOL = 1e-4
+# The card against the port's CPU path over TRAIN_CMP_STEPS steps: the
+# first step's gradient of every parameter, its L2 error over its L2 norm
+# (the CPU tests' float32 gradient tolerance); each step's loss, relative
+# (float32 sums in another order through two Adam updates); the parameters
+# after the steps within TRAIN_PARAM_LRS of their group's learning rate at
+# most and TRAIN_PARAM_MEAN_LRS on average over each leaf (Adam moves a
+# parameter by about lr whatever its gradient's size, so a near-zero
+# gradient rounded the other way can move it 2 lr the other way per step;
+# the mean holds the leaf as a whole, as the CPU tests do).
+TRAIN_CMP_STEPS = 3
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_LRS = 2 * TRAIN_CMP_STEPS
+TRAIN_PARAM_MEAN_LRS = 1e-2
+# The quantile loss |logit - target| has no derivative where a converged
+# quantile of the checkpoint sits: within this of it float32 rounding makes
+# the gradient -g, 0 or g. Those quantiles (at most 5 %) are left out of the
+# gradient's and the mean's comparison, as in the CPU tests; the largest
+# difference holds them too.
+QUANTILE_KINK = 1e-5
+# The served run's 20 steps train on the photos themselves, so a working
+# trainer lowers their rounded RD objective (phase 4's reading is the
+# checkpoint's): by at least SERVE_RD_FALL, to a finite value. Two broken
+# trainers, the same steps from the same checkpoint with every gradient
+# zeroed (no parameter moves: the checkpoint's reading) or negated (ascent,
+# which may diverge), must fail that gate, so it tells a working trainer
+# from a broken one.
+SERVE_RD_FALL = 0.05
+PRIOR_ITS = 100
+
 T0 = time.perf_counter()
 
 
@@ -308,13 +373,15 @@ def check_k1():
 
 
 def time_k1():
-    """K1, its plain version and addmm at the main path's shapes (IGDN)."""
+    """K1, its plain version and addmm at the main path's shapes and the
+    training step's (IGDN)."""
     import torch
 
     from nic_tpu_torch.ops.gdn_cuda import gdn_forward_kernel, gdn_reference
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows_list = [(r, d) for d in ("float32", "bfloat16") for r in GS_ROWS]
+    rows_list += [(r, "float32") for r in TRAIN_ROWS]
     table = []
     for rows, dtype in rows_list:
         dt = getattr(torch, dtype)
@@ -1030,6 +1097,373 @@ def check_bb_card_vs_cpu():
     return errs
 
 
+def l2_rel(a, b):
+    """||a - b|| / ||b||, L2 over every element."""
+    import torch
+
+    a, b = a.detach().double(), b.detach().double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def check_k1_train():
+    """(a) On the card, at the training step's three shapes, GDN and IGDN,
+    fp32: K1's forward against gdn_reference (max-norm relative, as
+    check_k1), and its backward, gdn_backward's dx, dgamma and dbeta (torch
+    matmuls on the saved inputs, as nic_tpu's XLA ``_gdn_bwd``), against
+    autograd through gdn_reference (L2 relative); then both through a fresh
+    GDN layer, whose gamma's off-diagonals sit exactly at their bound.
+    Returns (the errors, the largest forward error, absolute)."""
+    import torch
+
+    from nic_tpu_torch.models.layers import GDN
+    from nic_tpu_torch.ops.gdn_cuda import gdn_kernel, gdn_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs, max_abs = {}, 0.0
+    fwd_tol = K1_RTOL["float32"]
+    for rows in sorted(TRAIN_ROWS, reverse=True):
+        x, beta, gamma = k1_inputs(rows, gen)
+        w = torch.randn(rows, CHANNELS, device="cuda", generator=gen)
+        for inverse in (False, True):
+            args = [t.clone().requires_grad_(True) for t in (x, beta, gamma)]
+            ref_args = [t.clone().requires_grad_(True) for t in (x, beta, gamma)]
+            out = gdn_kernel(*args, inverse)
+            ref = gdn_reference(*ref_args, inverse)
+            grads = torch.autograd.grad(torch.sum(out * w), args)
+            refs = torch.autograd.grad(torch.sum(ref * w), ref_args)
+            e = {n: l2_rel(g, r) for n, g, r in zip(("dx", "dbeta", "dgamma"), grads, refs)}
+            e["forward"] = rel_err(out, ref)
+            max_abs = max(max_abs, float((out - ref).detach().abs().max()))
+            name = f"{'IGDN' if inverse else 'GDN'} M={rows}"
+            errs[name] = e
+            log(f"K1 training {name} C={CHANNELS} float32: forward rel err {e['forward']:.2e} "
+                f"(max-norm; tolerance {fwd_tol:g}); gdn_backward dx {e['dx']:.2e}, dbeta "
+                f"{e['dbeta']:.2e}, dgamma {e['dgamma']:.2e} (L2 relative; tolerance "
+                f"{K1_VJP_RTOL:g})")
+            if not e["forward"] <= fwd_tol:
+                raise AssertionError(f"K1's forward disagrees with its plain version at {name}")
+            if not max(e["dx"], e["dbeta"], e["dgamma"]) <= K1_VJP_RTOL:
+                raise AssertionError(f"gdn_backward disagrees with autograd at {name}")
+    for inverse in (False, True):
+        layer = GDN(CHANNELS, inverse=inverse).to("cuda")
+        ref_layer = copy.deepcopy(layer)
+        # x and w are the last rows' (M = TRAIN_ROWS' smallest).
+        out = layer(x)
+        torch.sum(out * w).backward()
+        ref_beta, ref_gamma = ref_layer.effective_params()
+        ref = gdn_reference(x, ref_beta, ref_gamma, inverse)
+        torch.sum(ref * w).backward()
+        off = ~torch.eye(CHANNELS, dtype=torch.bool, device="cuda")
+        at_bound = bool(torch.all(layer.gamma.detach()[off] == 2.0 ** -18))
+        nonzero = int(torch.count_nonzero(layer.gamma.grad[off]))
+        e = dict(forward=rel_err(out, ref),
+                 beta=l2_rel(layer.beta.grad, ref_layer.beta.grad),
+                 gamma=l2_rel(layer.gamma.grad, ref_layer.gamma.grad))
+        max_abs = max(max_abs, float((out - ref).detach().abs().max()))
+        name = f"fresh {'IGDN' if inverse else 'GDN'} layer M={x.shape[0]}"
+        errs[name] = e
+        log(f"K1 through {name}: forward rel err {e['forward']:.2e} (tolerance {fwd_tol:g}); "
+            f"raw beta grad {e['beta']:.2e}, raw gamma grad {e['gamma']:.2e} (L2 relative; "
+            f"tolerance {K1_VJP_RTOL:g}); gamma's off-diagonals at the bound 2^-18: "
+            f"{at_bound}, {nonzero} of {CHANNELS * (CHANNELS - 1)} with a nonzero gradient")
+        if not (e["forward"] <= fwd_tol and max(e["beta"], e["gamma"]) <= K1_VJP_RTOL
+                and at_bound and nonzero > 0):
+            raise AssertionError(f"K1 or its parameter gradients disagree through {name}")
+    return errs, max_abs
+
+
+def train_argv(script, ckpt_dir, photos_glob, last_step, *extra):
+    return ["--num_filters", "192", "--checkpoint_dir", ckpt_dir, script, "train",
+            "--train_glob", photos_glob, "--batchsize", "8", "--patchsize", "256",
+            "--lambda", str(LMBDA), "--steps_per_call", "1", "--last_step", str(last_step),
+            *extra]
+
+
+def run_train_cli(script, ckpt_dir, photos_glob, last_step, *extra):
+    """``<script> train`` in-process, K1's launches counted from zero;
+    returns (trainer, launches, ms per step, seconds)."""
+    import numpy as np
+
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    t = time.perf_counter()
+    gdn_cuda.launches = 0
+    trainer = cli_main(train_argv(script, ckpt_dir, photos_glob, last_step, *extra))
+    launches = gdn_cuda.launches
+    timing = trainer.last_timing
+    ms = timing["loop_ms"] / max(timing["timed_steps"], 1)
+    if not np.all(np.isfinite(trainer.losses)) or len(trainer.losses) != timing["steps"]:
+        raise AssertionError(f"{script} train: {len(trainer.losses)} losses for "
+                             f"{timing['steps']} steps, or one not finite")
+    if launches != 6 * timing["steps"]:
+        raise AssertionError(f"{script} train: K1 launched {launches} times in "
+                             f"{timing['steps']} steps (6 per step expected)")
+    return trainer, launches, ms, time.perf_counter() - t
+
+
+def run_training(workdir, photos_glob):
+    """(c) mbt2018 train from a fresh init, (d) its resume."""
+    import json as _json
+
+    import numpy as np
+
+    ckpt_dir = os.path.join(workdir, "train_ckpt")
+    trainer, launches, ms, secs = run_train_cli("mbt2018", ckpt_dir, photos_glob, TRAIN_STEPS)
+    losses = np.asarray(trainer.losses)
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    files = sorted(os.listdir(trainer.save_dir))
+    with open(os.path.join(trainer.save_dir, "metrics.jsonl")) as f:
+        logged = [_json.loads(line) for line in f]
+    log(f"mbt2018 train (nf=192, batch 8, patch 256, lambda {LMBDA}, fp32) from a fresh "
+        f"init: {trainer.last_timing['steps']} steps, {ms:.3f} ms/step over the last "
+        f"{trainer.last_timing['timed_steps']} (CUDA events) = {8e3 / ms:.1f} images/s; "
+        f"K1 launches {launches} (6 per step, no summaries' forwards); loss mean of the "
+        f"first 20 steps {first!r}, of the last 20 {last!r}; logged steps "
+        f"{[r['step'] for r in logged]}, losses {[r['loss'] for r in logged]}; "
+        f"{secs:.1f} s; files {files}")
+    expected = {"args.json", "record.txt", "metrics.jsonl", f"params-{TRAIN_STEPS}.npz",
+                f"ckpt-{TRAIN_STEPS}.pt"}
+    if not expected <= set(files):
+        raise AssertionError(f"mbt2018 train wrote {files}")
+    if trainer.step != TRAIN_STEPS or not last < first:
+        raise AssertionError(f"mbt2018 train reached step {trainer.step}; losses did not "
+                             f"fall ({first} -> {last})")
+    if not all(np.isfinite(r["loss"]) for r in logged):
+        raise AssertionError("mbt2018 train logged a loss that is not finite")
+
+    resumed, r_launches, r_ms, _ = run_train_cli("mbt2018", ckpt_dir, photos_glob,
+                                                 TRAIN_RESUME_STEP)
+    files = sorted(os.listdir(resumed.save_dir))
+    log(f"mbt2018 train resumed: {resumed.last_timing['steps']} steps to step "
+        f"{resumed.step}, K1 launches {r_launches}, {r_ms:.3f} ms/step; files {files}")
+    if (resumed.step != TRAIN_RESUME_STEP
+            or resumed.last_timing["steps"] != TRAIN_RESUME_STEP - TRAIN_STEPS
+            or f"params-{TRAIN_RESUME_STEP}.npz" not in files):
+        raise AssertionError("the resume did not restart at step "
+                             f"{TRAIN_STEPS} and end at {TRAIN_RESUME_STEP}")
+    return dict(steps=TRAIN_STEPS, ms_per_step=ms, images_per_s=8e3 / ms,
+                timed_steps=trainer.last_timing["timed_steps"], k1_launches=launches,
+                loss_first_20=first, loss_last_20=last, logged=logged,
+                resume_steps=resumed.last_timing["steps"], resume_ms_per_step=r_ms,
+                resume_k1_launches=r_launches, seconds=secs)
+
+
+def check_train_card_vs_cpu(model, donor, workdir):
+    """TRAIN_CMP_STEPS steps at batch 2, patch 128 from ``donor``, the card
+    against the port's CPU path on the same batches and noise: the first
+    step's gradients before Adam, each step's loss, the parameters after."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer, is_aux_param
+
+    rng = np.random.default_rng(12)
+    photos = np.load(PHOTOS)
+    n, h, w, _ = photos.shape
+    batches, noises = [], []
+    for _ in range(TRAIN_CMP_STEPS):
+        crops = []
+        for _ in range(2):
+            i, y, x = rng.integers(n), rng.integers(h - 127), rng.integers(w - 127)
+            crops.append(photos[i, y:y + 128, x:x + 128])
+        batches.append(np.stack(crops))
+        z_shape, y_shape = (2, 2, 2, CHANNELS), (2, 8, 8, CHANNELS)
+        first = (rng.uniform(-0.5, 0.5, z_shape) if model == "mbt2018"
+                 else rng.standard_normal(z_shape))
+        noises.append(tuple(torch.from_numpy(a.astype(np.float32))
+                            for a in (first, rng.uniform(-0.5, 0.5, y_shape))))
+    runs, kink = {}, None
+    for device in ("cuda", "cpu"):
+        cfg = TrainConfig(model=model, num_filters=CHANNELS, batchsize=2, patchsize=128,
+                          init_from=donor, checkpoint_dir=os.path.join(workdir, f"cmp_{device}"))
+        trainer = Trainer(cfg, device=device)
+        trainer.restore_or_init()
+        if model == "mbt2018" and device == "cpu":
+            prior = trainer.model.entropy_bottleneck
+            with torch.no_grad():
+                logits = prior._logits_cdf(prior.quantiles, stop_gradient=True)
+            kink = (torch.abs(logits - prior.quantile_targets) <= QUANTILE_KINK).numpy()
+            if np.count_nonzero(kink) > 0.05 * kink.size:
+                raise AssertionError(f"{np.count_nonzero(kink)} quantiles at the loss's kink")
+        # The first step's gradients, before any update.
+        x = torch.from_numpy(batches[0]).to(trainer.device).float() / 255.0
+        loss, _ = trainer.loss(x, tuple(t.to(trainer.device) for t in noises[0]))
+        loss.backward()
+        grads = {k: None if p.grad is None else p.grad.detach().cpu().double()
+                 for k, p in trainer.model.named_parameters()}
+        trainer.optimizer.zero_grad(set_to_none=True)
+        losses = [float(trainer.run_steps(b, n)["loss"]) for b, n in zip(batches, noises)]
+        runs[device] = (np.asarray(losses), grads, trainer.params_to_jax(), trainer.cfg)
+    (l_g, g_g, p_g, cfg), (l_c, g_c, p_c, _) = runs["cuda"], runs["cpu"]
+    loss_err = np.abs(l_g - l_c) / np.abs(l_c)
+    grad_errs = {}
+    for k, want in g_c.items():
+        got = g_g[k]
+        if want is None or got is None:
+            grad_errs[k] = 0.0 if want is None and got is None else float("inf")
+            continue
+        if kink is not None and is_aux_param(k):
+            want, got = want[~torch.from_numpy(kink)], got[~torch.from_numpy(kink)]
+        norm = float(torch.linalg.vector_norm(want))
+        diff = float(torch.linalg.vector_norm(got - want))
+        grad_errs[k] = diff / norm if norm > 0 else (0.0 if diff == 0 else float("inf"))
+    worst_grad = max(grad_errs, key=grad_errs.get)
+    param_lrs, param_mean_lrs = {}, {}
+    for k in p_c:
+        lr = cfg.aux_lr if model == "mbt2018" and k.endswith("quantiles") else cfg.main_lr
+        diff = np.abs(p_g[k] - p_c[k])
+        param_lrs[k] = float(diff.max() / lr)
+        held = diff[~kink] if kink is not None and k.endswith("quantiles") else diff
+        param_mean_lrs[k] = float(held.mean() / lr)
+    worst = max(param_lrs, key=param_lrs.get)
+    worst_mean = max(param_mean_lrs, key=param_mean_lrs.get)
+    log(f"{model}: {TRAIN_CMP_STEPS} training steps at batch 2, patch 128 from {donor}, card vs "
+        f"CPU: first step's gradients ({0 if kink is None else np.count_nonzero(kink)} "
+        f"quantiles at the loss's kink left out), largest L2 rel err over {len(grad_errs)} leaves "
+        f"{grad_errs[worst_grad]:.2e} ({worst_grad}; tolerance {TRAIN_GRAD_RTOL:g}), median "
+        f"{float(np.median(list(grad_errs.values()))):.2e}; loss rel err per step "
+        f"{[float(e) for e in loss_err]} (tolerance {TRAIN_LOSS_RTOL:g}); parameters' largest "
+        f"difference {param_lrs[worst]:.3f} lr ({worst}; tolerance {TRAIN_PARAM_LRS} lr), "
+        f"largest mean over a leaf {param_mean_lrs[worst_mean]:.2e} lr ({worst_mean}; "
+        f"tolerance {TRAIN_PARAM_MEAN_LRS:g} lr)")
+    if not (grad_errs[worst_grad] <= TRAIN_GRAD_RTOL and loss_err.max() <= TRAIN_LOSS_RTOL
+            and param_lrs[worst] <= TRAIN_PARAM_LRS
+            and param_mean_lrs[worst_mean] <= TRAIN_PARAM_MEAN_LRS):
+        raise AssertionError(f"{model} training: the card disagrees with the CPU")
+    return dict(grad_l2_rel_err_max=grad_errs[worst_grad], grad_worst_leaf=worst_grad,
+                quantiles_at_kink=0 if kink is None else int(np.count_nonzero(kink)),
+                loss_rel_err=[float(e) for e in loss_err], param_max_diff_lr=param_lrs[worst],
+                param_max_diff_leaf=worst, param_mean_diff_lr_max=param_mean_lrs[worst_mean],
+                param_mean_diff_leaf=worst_mean)
+
+
+def rd_after_broken_steps(workdir, photos_glob, x, name, hook):
+    """A broken trainer: (f)'s TRAIN_FT_STEPS steps from the lambda=0.01
+    checkpoint on the photos, each gradient passed through ``hook``; then the
+    photos' rounded RD objective (as phase 4 reads the checkpoint's)."""
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.train.data import DeviceDataset
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(num_filters=CHANNELS, lmbda=LMBDA, batchsize=8, patchsize=256,
+                      init_from=os.path.join(CKPT_DIR, RUN),
+                      checkpoint_dir=os.path.join(workdir, f"broken_{name}"))
+    trainer = Trainer(cfg, device="cuda")
+    trainer.restore_or_init()
+    for param in trainer.model.parameters():
+        param.register_hook(hook)
+    data = DeviceDataset(photos_glob, cfg.batchsize, cfg.patchsize, seed=0, device="cuda")
+    for _ in range(TRAIN_FT_STEPS):
+        trainer.run_steps(data.sample(1)[0])
+    res = LatentOptimizer(trainer.model, "cuda").eval_amortized(x)
+    return float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
+
+
+def run_trained_serving(workdir, photos_glob, amortized, mbt2018_path):
+    """(f) 20 steps from the lambda=0.01 checkpoint, then mbt2018 compress ->
+    decompress of the photos from the new run; its RD objective against the
+    checkpoint's and against two broken trainers' (zeroed and negated
+    gradients)."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    ckpt_dir = os.path.join(workdir, "serve_ckpt")
+    trainer, launches, ms, _ = run_train_cli(
+        "mbt2018", ckpt_dir, photos_glob, TRAIN_FT_STEPS, "--init_from",
+        os.path.join(CKPT_DIR, RUN))
+    common = ["--num_filters", "192", "--checkpoint_dir", ckpt_dir, "mbt2018"]
+    stream = os.path.join(workdir, "photos_trained.ntc")
+    png = os.path.join(workdir, "photos_trained.png")
+    out = cli_main(common + ["compress", RUN, PHOTOS, stream, "--results_dir",
+                             os.path.join(workdir, "results_trained")])
+    gdn_cuda.launches = 0
+    dec = cli_main(common + ["decompress", RUN, stream, png])
+    check_exact("mbt2018 (trained)", dec, png, out["pixels"])
+    res = out["results"]
+    actual, psnr = float(res["avg_batch_actual_bpp"]), float(res["psnr"].mean())
+    rd = float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
+    rd_ckpt = float(LMBDA * amortized["mse"].mean() + amortized["est_bpp"].mean())
+    d_rd = (rd - rd_ckpt) / rd_ckpt
+
+    def passes(rd_rel_change):
+        return bool(np.isfinite(rd_rel_change) and rd_rel_change <= -SERVE_RD_FALL)
+
+    x = np.load(PHOTOS).astype(np.float32) / 255.0
+    broken = {name: rd_after_broken_steps(workdir, photos_glob, x, name, hook)
+              for name, hook in (("zeroed", torch.zeros_like), ("negated", torch.neg))}
+    d_broken = {name: (v - rd_ckpt) / rd_ckpt for name, v in broken.items()}
+    log(f"served the run trained {TRAIN_FT_STEPS} steps from {RUN} ({ms:.3f} ms/step, K1 "
+        f"launches {launches}): mbt2018 compress -> decompress exact; actual {actual!r} bpp "
+        f"({out['bytes']} bytes), PSNR {psnr!r} dB, beside phase 7's {mbt2018_path['actual_bpp']!r} "
+        f"bpp and phase 4's {float(amortized['psnr'].mean())!r} dB; rounded RD objective "
+        f"{rd!r} vs the checkpoint's {rd_ckpt!r} (rel change {d_rd:+.4e}; the gate: finite "
+        f"and at most {-SERVE_RD_FALL:+g}); the same steps with zeroed gradients "
+        f"{broken['zeroed']!r} ({d_broken['zeroed']:+.4e}), negated {broken['negated']!r} "
+        f"({d_broken['negated']:+.4e}), each failing the gate")
+    if not passes(d_rd):
+        raise AssertionError("the trained run's RD objective did not fall")
+    if any(passes(d) for d in d_broken.values()):
+        raise AssertionError("a broken trainer passes the RD gate: it does not discriminate")
+    return dict(steps=TRAIN_FT_STEPS, ms_per_step=ms, k1_launches=launches, actual_bpp=actual,
+                psnr=psnr, rd_objective=rd, rd_objective_checkpoint=rd_ckpt,
+                rd_rel_change=d_rd,
+                # A diverged broken run's NaN is written as null (strict JSON).
+                rd_rel_change_broken={k: float(v) if np.isfinite(v) else None
+                                      for k, v in d_broken.items()})
+
+
+def run_bb_training(workdir, photos_glob):
+    """(g) mbt2018_bb train from the bits-back checkpoint."""
+    import numpy as np
+
+    trainer, launches, ms, secs = run_train_cli(
+        "mbt2018_bb", os.path.join(workdir, "bb_ckpt"), photos_glob, TRAIN_FT_STEPS,
+        "--init_from", os.path.join(CKPT_DIR, BB_RUN))
+    losses = np.asarray(trainer.losses)
+    log(f"mbt2018_bb train (nf=192, batch 8, patch 256) from {BB_RUN}: "
+        f"{trainer.last_timing['steps']} steps, {ms:.3f} ms/step over the last "
+        f"{trainer.last_timing['timed_steps']} = {8e3 / ms:.1f} images/s; K1 launches "
+        f"{launches}; losses first {float(losses[0])!r}, last {float(losses[-1])!r} (all "
+        f"finite); {secs:.1f} s")
+    return dict(steps=TRAIN_FT_STEPS, ms_per_step=ms, images_per_s=8e3 / ms,
+                k1_launches=launches, loss_first=float(losses[0]), loss_last=float(losses[-1]))
+
+
+def run_learned_prior(model_cpu, workdir):
+    """(h) learned_prior on the card on the photos' amortized y."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.cli.main import main as cli_main
+
+    model = copy.deepcopy(model_cpu).to("cuda")
+    x = torch.from_numpy(np.load(PHOTOS).astype(np.float32) / 255.0).to("cuda")
+    with torch.no_grad():
+        y = model.analyze(x).reshape(-1, CHANNELS).cpu().numpy()
+    data = os.path.join(workdir, "photos_y.npy")
+    np.save(data, y)
+    t = time.perf_counter()
+    save_dir = cli_main(["learned_prior", "--num_channels", str(CHANNELS), "--data_path", data,
+                         "--its", str(PRIOR_ITS), "--tol", "0", "--logging_freq", "10",
+                         "--checkpoint_dir", os.path.join(workdir, "prior")])
+    secs = time.perf_counter() - t
+    with open(os.path.join(save_dir, "record.json")) as f:
+        record = json.load(f)
+    losses = [r["loss"] for r in record]
+    log(f"learned_prior on the card: {PRIOR_ITS} iterations on y of shape {y.shape} in "
+        f"{secs:.2f} s; loss {losses[0]!r} -> {losses[-1]!r} (every 10: {losses}); "
+        f"wrote {sorted(os.listdir(save_dir))}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and os.path.exists(os.path.join(save_dir, "prior_model.npz"))):
+        raise AssertionError("learned_prior's loss did not fall")
+    return dict(its=PRIOR_ITS, samples=int(y.shape[0]), loss_first=losses[0],
+                loss_last=losses[-1], seconds=secs)
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -1071,6 +1505,7 @@ def main():
         return 1
     from nic_tpu_torch import config
     from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.tools.profile_train import write_photo_corpus
 
     config.set_fp32_precision()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -1126,6 +1561,23 @@ def main():
         bb_errs = check_bb_card_vs_cpu()
         bb_paths["bb_sga"].update(card_vs_cpu_loss_rel_err=bb_errs)
         log(f"bits-back done in {time.perf_counter() - t:.1f} s")
+
+        t = time.perf_counter()
+        k1_train, k1_train_max_abs = check_k1_train()
+        photos_dir = os.path.join(workdir, "train_photos")
+        os.makedirs(photos_dir)
+        photos_glob = write_photo_corpus(photos_dir)
+        train_path = run_training(workdir, photos_glob)
+        train_path["card_vs_cpu"] = check_train_card_vs_cpu(
+            "mbt2018", os.path.join(CKPT_DIR, RUN), workdir)
+        train_path["k1_forward_and_backward_rel_err"] = k1_train
+        train_path["served"] = run_trained_serving(workdir, photos_glob, amortized,
+                                                   mbt2018_path)
+        train_bb_path = run_bb_training(workdir, photos_glob)
+        train_bb_path["card_vs_cpu"] = check_train_card_vs_cpu(
+            "mbt2018_bb", os.path.join(CKPT_DIR, BB_RUN), workdir)
+        prior_path = run_learned_prior(model_cpu, workdir)
+        log(f"training done in {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir)
 
@@ -1134,13 +1586,15 @@ def main():
     kernels = [
         kernel_row(
             "gdn (K1, fused GDN/IGDN)", "nic_tpu_torch/csrc/gdn.cu",
-            "nic_tpu/ops/pallas_gdn.py:23", k1_launches, k1_max_abs, k1_row,
+            "nic_tpu/ops/pallas_gdn.py:23", k1_launches, max(k1_max_abs, k1_train_max_abs),
+            k1_row,
             "torch.addmm(beta, x^2, gamma), the cuBLAS product at K1's core",
             shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32", shapes=k1_timings,
             launches_by_path=dict(
                 sga=k1_launches, sga_bf16=k1_bf16_launches,
                 **{m: method_paths[m]["k1_launches"] for m in METHODS},
-                **{b: bb_paths[b]["k1_launches"] for b in BB_SCRIPTS}),
+                **{b: bb_paths[b]["k1_launches"] for b in BB_SCRIPTS},
+                train=train_path["k1_launches"], train_bb=train_bb_path["k1_launches"]),
             max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
@@ -1153,7 +1607,8 @@ def main():
              "sga bf16 (LatentOptimizer)": bf16_path,
              "bf16 amortized": dict(est_bpp=float(amortized_bf16["est_bpp"].mean()),
                                     psnr=float(amortized_bf16["psnr"].mean())),
-             **method_paths, **bb_paths}
+             **method_paths, **bb_paths, "train": train_path, "train_bb": train_bb_path,
+             "learned_prior": prior_path}
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,23 +8,30 @@
   python -m nic_tpu_torch ... {bb_sga,bb_no_sga,bb_plain} compress \\
       mbt2018_bb-num_filters=192-lmbda=0.01 <input> [out.ntc]
   python -m nic_tpu_torch ... <script> decompress <runname> <in.ntc> [out.png]
+  python -m nic_tpu_torch ... {mbt2018,mbt2018_bb} train --train_glob 'data/*.png' \\
+      --lambda 0.01 [--last_step N ...]
+  python -m nic_tpu_torch learned_prior [--device cpu] --num_channels C \\
+      --data_path samples.npy
 
-It takes nic_tpu's command line. It runs ``compress`` of the five
-iterative methods (sga, map, ste, unoise, danneal: estimated rates, and a
-real bitstream when an output file is named, except for map and unoise
-with ``--unoise_mean_source noisy_z``, whose latents no decoder can
-reproduce), of ``mbt2018`` (amortized latents, real bitstream) and of the
-three bits-back methods on the ``mbt2018_bb`` model (estimated net rates,
-and a BB-ANS stream when an output file is named), and their
-``decompress``; a bits-back decode whose initial bits do not come back
-exits non-zero. As in nic_tpu, the bits-back scripts ignore ``--verbose``,
-``--distortion``, ``--unoise_mean_source``, ``--save_opt_record`` and
-``--save_reconstruction``. Every other script, subcommand or flag exits non-zero
-with "not ported yet (ROADMAP.md)". It runs on the card unless ``--device
-cpu`` is given, and raises when there is no card. Streams decode with the
-same code on the same device type: ``decompress`` takes the ``--device``
-that ``compress`` was given. The transforms compute in float32, as
-nic_tpu's CLI does; bfloat16 is reached through the library
+It takes nic_tpu's command line. It runs ``train`` of both models (with
+``--retries``, ``--init_from`` and the host or device data pipeline) and
+``learned_prior``; ``compress`` of the five iterative methods (sga, map,
+ste, unoise, danneal: estimated rates, and a real bitstream when an output
+file is named, except for map and unoise with ``--unoise_mean_source
+noisy_z``, whose latents no decoder can reproduce), of ``mbt2018``
+(amortized latents, real bitstream) and of the three bits-back methods on
+the ``mbt2018_bb`` model (estimated net rates, and a BB-ANS stream when an
+output file is named), and their ``decompress``; a bits-back decode whose
+initial bits do not come back exits non-zero. As in nic_tpu, the bits-back
+scripts ignore ``--verbose``, ``--distortion``, ``--unoise_mean_source``,
+``--save_opt_record`` and ``--save_reconstruction``, and a method script
+refuses ``train``. Every other flag (the multi-host ones, ``--plot``, the
+``--quant`` variants, ``--data_parallel``, ``--spatial``) exits non-zero with
+"not ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
+is given, and raises when there is no card. Streams decode with the same
+code on the same device type: ``decompress`` takes the ``--device`` that
+``compress`` was given. The transforms compute in float32, as nic_tpu's CLI
+does; bfloat16 is reached through the library
 (``load_model(..., compute_dtype=torch.bfloat16)``).
 """
 
@@ -48,6 +55,32 @@ BB_FIELDS = FIELDS + ("est_bpp_back",)
 PORTED = ("mbt2018",) + METHOD_SCRIPTS + BB_SCRIPTS
 # --verbose probes the rounded objective every this many steps.
 VERBOSE_PROBE_EVERY = 100
+# Bytes of decoded corpus up to which --data_pipeline auto keeps it on the device.
+DEVICE_DATA_BUDGET_ENV = "NIC_TPU_TORCH_DEVICE_DATA_BUDGET"
+
+
+def build_prior_parser() -> argparse.ArgumentParser:
+    """The standalone prior fitter's command line."""
+    p = argparse.ArgumentParser(
+        prog="nic_tpu_torch learned_prior",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("--checkpoint_dir", default="checkpoints")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num_channels", type=int, required=True)
+    p.add_argument("--dims", nargs="*", type=int, default=[3, 3, 3])
+    p.add_argument("--init_scale", default=1.0, type=float)
+    p.add_argument("--data_path", required=True)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--its", type=int, default=500)
+    p.add_argument("--tol", type=float, default=1e-3)
+    p.add_argument("--logging_freq", type=int, default=10)
+    p.add_argument("--plot", action="store_true", help="Save fitted-density plots.")
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="Where to run: the card, unless the CPU is asked for.",
+    )
+    return p
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,7 +97,60 @@ def build_parser() -> argparse.ArgumentParser:
         help="Where to run: the card, unless the CPU is asked for.",
     )
     sub = parser.add_subparsers(dest="command")
-    sub.add_parser("train")
+
+    train_cmd = sub.add_parser("train")
+    train_cmd.add_argument("--train_glob", default="images/*.png")
+    train_cmd.add_argument("--batchsize", type=int, default=8)
+    train_cmd.add_argument("--patchsize", type=int, default=256)
+    train_cmd.add_argument("--lambda", type=float, default=0.01, dest="lmbda")
+    train_cmd.add_argument(
+        "--distortion", choices=("mse", "msssim"), default="mse",
+        help="Training distortion objective (msssim needs --patchsize >= 176).",
+    )
+    train_cmd.add_argument("--last_step", type=int, default=1_000_000)
+    train_cmd.add_argument("--preprocess_threads", type=int, default=16)
+    train_cmd.add_argument(
+        "--data_pipeline", choices=("auto", "host", "device"), default="auto",
+        help="'device' keeps the whole (uniformly sized) corpus on the device and "
+        "samples crops there; 'host' is the threaded decode/crop pipeline; 'auto' "
+        "picks 'device' when the decoded corpus fits "
+        f"{DEVICE_DATA_BUDGET_ENV} (2 GiB).",
+    )
+    train_cmd.add_argument("--logdir", default="")
+    train_cmd.add_argument("--save_checkpoint_secs", type=int, default=300)
+    train_cmd.add_argument("--save_summary_secs", type=int, default=60)
+    train_cmd.add_argument(
+        "--steps_per_call", type=int, default=8,
+        help="Train steps per call of the fit loop, their batches fetched together.",
+    )
+    train_cmd.add_argument("--coordinator_address", default=None)
+    train_cmd.add_argument("--num_processes", type=int, default=None)
+    train_cmd.add_argument("--process_id", type=int, default=None)
+    train_cmd.add_argument(
+        "--grad_clip", type=float, default=0.0,
+        help="Global-norm gradient clip (0 = off).",
+    )
+    train_cmd.add_argument(
+        "--divergence_threshold", type=float, default=0.0,
+        help="Abort (FloatingPointError) when the logged loss exceeds this value "
+        "(0 = off).",
+    )
+    train_cmd.add_argument(
+        "--init_from", default="",
+        help="Start a new run's parameters from another run's checkpoint "
+        "directory (fresh optimizer, step 0); ignored once this run has "
+        "checkpoints.",
+    )
+    train_cmd.add_argument(
+        "--init_from_partial", action="store_true",
+        help="With --init_from: take only the parameters whose key and shape "
+        "match (e.g. mbt2018_bb from mbt2018).",
+    )
+    train_cmd.add_argument(
+        "--retries", type=int, default=0,
+        help="Re-run training in a fresh process up to N times on a crash, "
+        "resuming from the latest checkpoint.",
+    )
 
     compress_cmd = sub.add_parser("compress")
     compress_cmd.add_argument("--results_dir", default="./results")
@@ -104,10 +190,15 @@ def _not_ported(what: str):
 
 
 def _check_ported(args, unknown: List[str]) -> None:
-    """Exit non-zero on any part of nic_tpu's command line this slice lacks."""
-    if args.command not in ("compress", "decompress"):
-        _not_ported(f"{args.script} {args.command}")
-    if args.script not in PORTED:
+    """Exit non-zero on any part of nic_tpu's command line the port lacks,
+    and, as nic_tpu does, on ``train`` of a method script."""
+    if args.command == "train":
+        if args.script not in MODELS:
+            sys.exit(f"{args.script} does not support training.")
+        for flag in ("coordinator_address", "num_processes", "process_id"):
+            if getattr(args, flag) is not None:
+                _not_ported(f"multi-host training (--{flag})")
+    elif args.script not in PORTED:
         _not_ported(f"{args.script} {args.command}")
     if unknown:
         _not_ported(' '.join(unknown))
@@ -391,17 +482,101 @@ def run_decompress(args) -> Dict[str, Any]:
     return dict(x_hat=x_hat, path=out, timing=timing)
 
 
+def run_train(args, argv: Optional[List[str]] = None):
+    """``<model> train``: fit from the run's latest checkpoint (or
+    ``--init_from``, or a fresh init) to ``--last_step``. With ``--retries``
+    the command re-runs itself in a supervised child process. Returns the
+    trainer (its ``losses`` and ``last_timing`` describe the run)."""
+    if args.retries > 0 and argv is not None:
+        from nic_tpu_torch.train.supervisor import is_supervised_child, supervise
+
+        if not is_supervised_child():
+            sys.exit(supervise(argv, args.retries))
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tc = TrainConfig(
+        model=args.script,
+        num_filters=args.num_filters,
+        lmbda=args.lmbda,
+        distortion=args.distortion,
+        batchsize=args.batchsize,
+        patchsize=args.patchsize,
+        last_step=args.last_step,
+        checkpoint_dir=args.checkpoint_dir,
+        save_checkpoint_secs=args.save_checkpoint_secs,
+        save_summary_secs=args.save_summary_secs,
+        logdir=args.logdir,
+        steps_per_call=args.steps_per_call,
+        grad_clip=args.grad_clip,
+        divergence_threshold=args.divergence_threshold,
+        init_from=args.init_from,
+        init_from_partial=args.init_from_partial,
+    )
+    trainer = Trainer(tc, device=args.device)
+    pipeline = _make_train_pipeline(args, trainer.device)
+    try:
+        trainer.fit(pipeline, verbose=True)
+    finally:
+        pipeline.close()
+    return trainer
+
+
+def _device_corpus_fits(train_glob: str) -> bool:
+    """Whether --data_pipeline auto keeps the corpus on the device: PNG or
+    other image files (no .npy), all of one size, within the byte budget."""
+    import glob as globlib
+
+    from PIL import Image
+
+    files = sorted(globlib.glob(train_glob))
+    if not files or any(f.endswith(".npy") for f in files):
+        return False
+    sizes, total = set(), 0
+    try:
+        for f in files[:10000]:
+            with Image.open(f) as im:  # reads the header only
+                sizes.add(im.size)
+                total += im.size[0] * im.size[1] * 3
+    except OSError:
+        return False
+    budget = int(os.environ.get(DEVICE_DATA_BUDGET_ENV, 2 << 30))
+    return len(sizes) == 1 and total <= budget
+
+
+def _make_train_pipeline(args, device):
+    """The corpus on the device with crops sampled there when it fits (or
+    ``--data_pipeline device``), else the host's worker threads."""
+    from nic_tpu_torch.train.data import DeviceDataset, PatchPipeline
+
+    choice = args.data_pipeline
+    if choice == "auto":
+        choice = "device" if _device_corpus_fits(args.train_glob) else "host"
+    if choice == "device":
+        ds = DeviceDataset(args.train_glob, batchsize=args.batchsize,
+                           patchsize=args.patchsize, seed=0, device=device)
+        print(f"Device-resident dataset: {ds.num_images} images, "
+              f"{ds.nbytes / 1e6:.0f} MB on {device}; batches sampled there.")
+        return ds
+    return PatchPipeline(args.train_glob, batchsize=args.batchsize,
+                         patchsize=args.patchsize, num_threads=args.preprocess_threads,
+                         seed=0)
+
+
 def main(argv: Optional[List[str]] = None):
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "learned_prior":
-        _not_ported("learned_prior")
+        from nic_tpu_torch.train.prior_trainer import train_prior_cli
+
+        return train_prior_cli(build_prior_parser().parse_args(argv[1:]))
     parser = build_parser()
     args, unknown = parser.parse_known_args(argv)
     if args.command is None:
         parser.print_usage()
         sys.exit(2)
     _check_ported(args, unknown)
+    if args.command == "train":
+        return run_train(args, argv=list(argv))
     if args.command == "decompress":
         return run_decompress(args)
     return run_compress(args)

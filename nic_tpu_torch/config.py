@@ -28,6 +28,9 @@ def scale_table() -> np.ndarray:
 # Likelihood lower bound.
 LIKELIHOOD_LOWER_BOUND = 1e-9
 
+# sigma^2 upper bound of the bits-back model while it trains.
+VARIANCE_UPPER_BOUND_BB_TRAIN = 1e1
+
 # atanh clipping epsilon in the SGA relaxation.
 ATANH_EPSILON = 1e-5
 
@@ -41,6 +44,7 @@ CHECKPOINT_DIR = "./checkpoints"
 # Entropy-coding table parameters.
 CODER_PRECISION = 16      # bits of CDF precision for the rANS coder
 CONDITIONAL_TAIL_MASS = 2 ** -8
+FACTORIZED_TAIL_MASS = 1e-9
 
 # Whether `mbt2018 compress` writes a bitstream when no output file is named.
 WRITE_BITSTREAM_FOR_EVAL = False

@@ -7,12 +7,14 @@ index for entropy coding. Stateless.
 
 from dataclasses import dataclass, field
 from statistics import NormalDist
+from typing import Optional
 
 import numpy as np
 import torch
 
 from nic_tpu_torch import config
 from nic_tpu_torch.ops.bounds import lower_bound
+from nic_tpu_torch.ops.quantize import uniform_noise
 from nic_tpu_torch.ops.stats import box_convolved_gaussian_likelihood
 
 
@@ -36,6 +38,15 @@ class GaussianConditional:
         """p(y | mu, sigma) under the box-convolved Gaussian, lower-bounded."""
         lik = box_convolved_gaussian_likelihood(y, mu, self.bound_scale(sigma))
         return lower_bound(lik, self.likelihood_bound)
+
+    def __call__(self, y, mu, sigma, training: bool,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        """(y_tilde, likelihoods): U(-.5, .5) noise in training (``noise``, of
+        y's shape, or drawn from ``generator``), mean-centered rounding in
+        evaluation."""
+        y_tilde = uniform_noise(y, generator, noise) if training else self.quantize(y, mu)
+        return y_tilde, self.likelihood(y_tilde, mu, sigma)
 
     def quantize(self, y, mu):
         """Mean-centered rounding: round(y - mu) + mu."""

@@ -1,7 +1,8 @@
 """Deep factorized prior / entropy bottleneck for the hyper-latent z
 (counterpart of nic_tpu/models/factorized_prior.py: the CDF network, the
-likelihood, the medians and quantization, and the coding half: cdf, pdf,
-inverse_cdf, the PMF tables for the rANS coder and pmf_on_grid).
+likelihood, the training and evaluation forward, the quantile loss, the
+medians and quantization, and the coding half: cdf, pdf, inverse_cdf, the
+PMF tables for the rANS coder and pmf_on_grid).
 
 The density: a monotone map built from K+1 stages
   u <- softplus(H_k) @ u + b_k ;  u <- u + tanh(a_k) * tanh(u)  (k < K)
@@ -11,13 +12,15 @@ nic_tpu's (C, ., .) shapes; the batch rides along the last axis of a
 """
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nic_tpu_torch.config import LIKELIHOOD_LOWER_BOUND
+from nic_tpu_torch.config import FACTORIZED_TAIL_MASS, LIKELIHOOD_LOWER_BOUND
+from nic_tpu_torch.ops.bounds import lower_bound
+from nic_tpu_torch.ops.quantize import uniform_noise
 
 
 def _channels_to_front(x):
@@ -34,25 +37,46 @@ class FactorizedEntropyModel(nn.Module):
 
     def __init__(self, channels: int, dims: Tuple[int, ...] = (3, 3, 3),
                  init_scale: float = 10.0,
-                 likelihood_bound: float = LIKELIHOOD_LOWER_BOUND):
+                 likelihood_bound: float = LIKELIHOOD_LOWER_BOUND,
+                 tail_mass: float = FACTORIZED_TAIL_MASS):
         super().__init__()
         self.channels = channels
         self.dims = tuple(dims)
+        self.init_scale = init_scale
         self.likelihood_bound = likelihood_bound
+        self.tail_mass = tail_mass
         filters = (1,) + self.dims + (1,)
-        scale = init_scale ** (1.0 / (len(self.dims) + 1))
         for i in range(len(self.dims) + 1):
-            init = math.log(math.expm1(1.0 / scale / filters[i + 1]))
             self.register_parameter(f"matrix_{i}", nn.Parameter(
-                torch.full((channels, filters[i + 1], filters[i]), init)))
-            bias = torch.empty(channels, filters[i + 1], 1)
-            nn.init.uniform_(bias, -0.5, 0.5)
-            self.register_parameter(f"bias_{i}", nn.Parameter(bias))
+                torch.empty(channels, filters[i + 1], filters[i])))
+            self.register_parameter(f"bias_{i}", nn.Parameter(
+                torch.empty(channels, filters[i + 1], 1)))
             if i < len(self.dims):
                 self.register_parameter(f"factor_{i}", nn.Parameter(
-                    torch.zeros(channels, filters[i + 1], 1)))
-        q = torch.tensor([-init_scale, 0.0, init_scale])
-        self.quantiles = nn.Parameter(q.expand(channels, 1, 3).clone())
+                    torch.empty(channels, filters[i + 1], 1)))
+        self.quantiles = nn.Parameter(torch.empty(channels, 1, 3))
+        # The quantile loss's targets, the logits of (tail/2, 1/2, 1 - tail/2):
+        # a buffer, so a step on the card copies nothing from the host.
+        target = math.log(2.0 / tail_mass - 1.0)
+        self.register_buffer("quantile_targets", torch.tensor([-target, 0.0, target]),
+                             persistent=False)
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """nic_tpu's initial values: constant matrices of width init_scale,
+        biases U(-0.5, 0.5) (drawn from ``generator``), zero factors and the
+        quantiles (-init_scale, 0, init_scale)."""
+        filters = (1,) + self.dims + (1,)
+        scale = self.init_scale ** (1.0 / (len(self.dims) + 1))
+        for i in range(len(self.dims) + 1):
+            getattr(self, f"matrix_{i}").fill_(
+                math.log(math.expm1(1.0 / scale / filters[i + 1])))
+            nn.init.uniform_(getattr(self, f"bias_{i}"), -0.5, 0.5, generator=generator)
+            if i < len(self.dims):
+                getattr(self, f"factor_{i}").zero_()
+        q = torch.tensor([-self.init_scale, 0.0, self.init_scale])
+        self.quantiles.copy_(q.expand_as(self.quantiles))
 
     def _logits_cdf(self, u, stop_gradient: bool = False):
         """CDF logits for u of shape (C, d, N); ``stop_gradient`` keeps the
@@ -78,11 +102,23 @@ class FactorizedEntropyModel(nn.Module):
         return _channels_to_back(torch.sigmoid(logits), x.shape)
 
     def pdf(self, x, stop_gradient: bool = False):
-        """Model PDF = d/dx CDF, by forward-mode autodiff as in nic_tpu."""
-        _, tangent = torch.func.jvp(
+        """Model PDF = d/dx CDF, by forward-mode autodiff as in nic_tpu.
+        Reverse mode runs through it: its gradient reaches x and, unless
+        ``stop_gradient``, the density's parameters."""
+        return self.cdf_pdf(x, stop_gradient)[1]
+
+    def cdf_pdf(self, x, stop_gradient: bool = False):
+        """(CDF, PDF) in one forward-mode pass."""
+        return torch.func.jvp(
             lambda v: self.cdf(v, stop_gradient), (x,), (torch.ones_like(x),)
         )
-        return tangent
+
+    def logpdf(self, x, pdf_lower_bound: float = 1e-10, stop_gradient: bool = False):
+        """log PDF, the PDF lower-bounded before the log."""
+        pdf = self.pdf(x, stop_gradient)
+        if pdf_lower_bound:
+            pdf = lower_bound(pdf, pdf_lower_bound)
+        return torch.log(pdf)
 
     def likelihood(self, x, stop_gradient_density: bool = False):
         """P(x - .5 < X <= x + .5), channels-last: a sign-stabilized
@@ -104,6 +140,25 @@ class FactorizedEntropyModel(nn.Module):
         """Median-centered rounding ('dequantize' semantics)."""
         medians = self.medians
         return torch.round(x - medians) + medians
+
+    def forward(self, x, training: bool, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """(x_tilde, likelihoods), channels-last. Training adds U(-.5, .5)
+        noise (``noise``, of x's shape, or drawn from ``generator``);
+        evaluation rounds around the medians. The likelihoods are
+        lower-bounded."""
+        x_tilde = uniform_noise(x, generator, noise) if training else self.quantize(x)
+        lik = self.likelihood(x_tilde)
+        if self.likelihood_bound > 0:
+            lik = lower_bound(lik, self.likelihood_bound)
+        return x_tilde, lik
+
+    def aux_loss(self):
+        """Quantile loss: pins the learned quantiles to the density's
+        (tail/2, 1/2, 1 - tail/2) points. The density's parameters are
+        detached, so its gradient reaches ``quantiles`` only."""
+        logits = self._logits_cdf(self.quantiles, stop_gradient=True)
+        return torch.sum(torch.abs(logits - self.quantile_targets))
 
     # ------------------------------------------------------------- coding
 

@@ -15,6 +15,8 @@ Padding reproduces XLA's "SAME":
 """
 
 import math
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -68,12 +70,20 @@ class SignalConv(nn.Module):
         self.transpose = strides_up > 1
         shape = ((in_channels, features) if self.transpose
                  else (features, in_channels)) + (kernel, kernel)
-        # variance_scaling(1.0, "fan_avg", "uniform"), nic_tpu's kernel init.
-        fan_avg = kernel * kernel * (in_channels + features) / 2.0
-        limit = math.sqrt(3.0 / fan_avg)
         self.weight = nn.Parameter(torch.empty(shape))
-        nn.init.uniform_(self.weight, -limit, limit)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """nic_tpu's initial values: the kernel from variance_scaling(1.0,
+        "fan_avg", "uniform"), drawn from ``generator``; a zero bias."""
+        channels_in_and_out = self.weight.shape[0] + self.weight.shape[1]
+        fan_avg = self.kernel * self.kernel * channels_in_and_out / 2.0
+        limit = math.sqrt(3.0 / fan_avg)
+        nn.init.uniform_(self.weight, -limit, limit, generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def weight_from_hwio(self, kernel_hwio: np.ndarray) -> torch.Tensor:
         """This layer's ``weight`` from an nic_tpu (kh, kw, in, out) kernel."""
@@ -83,6 +93,14 @@ class SignalConv(nn.Module):
         else:
             k = k.transpose(3, 2, 0, 1)
         return torch.from_numpy(np.ascontiguousarray(k))
+
+    def weight_to_hwio(self, weight: torch.Tensor) -> np.ndarray:
+        """The nic_tpu (kh, kw, in, out) kernel of this layer's ``weight``:
+        the inverse of ``weight_from_hwio``; a copy."""
+        w = weight.detach().cpu().float().numpy()
+        if self.transpose:
+            return np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1])
+        return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
 
     def forward(self, x):
         n, h, w, _ = x.shape

@@ -8,11 +8,13 @@ The sub-passes are exposed one by one because the inference engine builds
 its own computation over the latents. All tensors are NHWC. The transforms
 compute in ``compute_dtype`` (float32 or bfloat16) and return float32; the
 parameters, the z prior, the Gaussian conditional and the rate math stay
-float32. The evaluation forward and the coding tables are ported (training
-is later work).
+float32. ``forward`` is the training pass (uniform noise on z and y, no
+crop) or the evaluation pass (rounding); ``rd_loss`` and ``aux_loss`` are
+the two training objectives.
 """
 
-from typing import Dict
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -89,19 +91,32 @@ class MeanScaleHyperprior(nn.Module):
     def pmf_for_coding(self, max_length: int = 256, grid: str = "median"):
         return self.entropy_bottleneck.pmf_for_coding(max_length, grid=grid)
 
+    def aux_loss(self):
+        """The z prior's quantile loss; its gradient reaches the quantiles only."""
+        return self.entropy_bottleneck.aux_loss()
+
     # -------------------------------------------------------------- forward
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        """Evaluation forward pass: median/mean-centered rounding of the
-        amortized latents. Returns a dict of NHWC tensors."""
+    def forward(self, x, training: bool = False,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The full pass over NHWC images; returns a dict of NHWC tensors
+        under nic_tpu's keys.
+
+        Training adds U(-.5, .5) noise to z and to y, ``noise = (z's, y's)``
+        or drawn from ``generator`` (z's first), and crops nothing: the
+        patch size is a multiple of 64. Evaluation rounds z around the
+        medians and y around mu, and crops mu, sigma and x_tilde to the
+        input's sizes."""
+        noise_z, noise_y = noise if noise is not None else (None, None)
         y = self.analyze(x)
         z = self.hyper_analyze(y)
-        z_tilde = self.quantize_z(z)
-        z_lik = self.z_likelihood(z_tilde)
-        mu, sigma = self.hyper_synthesize(z_tilde, y_hw=(y.shape[1], y.shape[2]))
-        y_tilde = self.conditional.quantize(y, mu)
-        y_lik = self.y_likelihood(y_tilde, mu, sigma)
-        x_tilde = self.synthesize(y_tilde, x_hw=(x.shape[1], x.shape[2]))
+        z_tilde, z_lik = self.entropy_bottleneck(z, training, noise_z, generator)
+        mu, sigma = self.hyper_synthesize(
+            z_tilde, y_hw=None if training else (y.shape[1], y.shape[2]))
+        y_tilde, y_lik = self.conditional(y, mu, sigma, training, noise_y, generator)
+        x_tilde = self.synthesize(
+            y_tilde, x_hw=None if training else (x.shape[1], x.shape[2]))
         return dict(
             y=y,
             z=z,
@@ -114,3 +129,43 @@ class MeanScaleHyperprior(nn.Module):
             x_tilde=x_tilde,
         )
 
+
+def distortion_loss(x, x_tilde, distortion: str = "mse"):
+    """The distortion term and its metrics: "mse", 255^2 * MSE; "msssim",
+    1 - MS-SSIM (patches >= 176 pixels). Returns (distortion, metrics)."""
+    float_mse = torch.mean(torch.square(x - x_tilde))
+    psnr = -10.0 * torch.log(float_mse) / math.log(10.0)
+    train_mse = float_mse * (255.0 ** 2)
+    metrics = dict(mse=train_mse, psnr=psnr)
+    if distortion == "mse":
+        return train_mse, metrics
+    if distortion == "msssim":
+        from nic_tpu_torch.evaluation.metrics import msssim
+
+        ms = torch.mean(msssim(x_tilde, x, max_val=1.0))
+        metrics["msssim"] = ms
+        return 1.0 - ms, metrics
+    raise ValueError(f"Unknown distortion {distortion!r}")
+
+
+def rd_loss(outputs: Dict[str, torch.Tensor], x, lmbda: float, distortion: str = "mse"):
+    """The rate-distortion training loss, lmbda * distortion + bpp, with bpp
+    over the whole batch's pixels. Returns (loss, metrics) under nic_tpu's
+    metric keys."""
+    num_pixels = x.shape[0] * x.shape[1] * x.shape[2]
+    y_bpp = -torch.sum(torch.log(outputs["y_likelihoods"])) / (LN2 * num_pixels)
+    z_bpp = -torch.sum(torch.log(outputs["z_likelihoods"])) / (LN2 * num_pixels)
+    train_bpp = y_bpp + z_bpp
+    dist, dist_metrics = distortion_loss(x, outputs["x_tilde"], distortion)
+    loss = lmbda * dist + train_bpp
+    return loss, dict(loss=loss, bpp=train_bpp, y_bpp=y_bpp, z_bpp=z_bpp, **dist_metrics)
+
+
+def eval_bpp(outputs: Dict[str, torch.Tensor], num_pixels_per_image: int):
+    """Per-image estimated (bpp, y_bpp, z_bpp)."""
+    dims = (1, 2, 3)
+    y_bpp = -torch.sum(torch.log(outputs["y_likelihoods"]), dim=dims) / (
+        LN2 * num_pixels_per_image)
+    z_bpp = -torch.sum(torch.log(outputs["z_likelihoods"]), dim=dims) / (
+        LN2 * num_pixels_per_image)
+    return y_bpp + z_bpp, y_bpp, z_bpp

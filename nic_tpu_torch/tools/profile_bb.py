@@ -24,7 +24,7 @@ import torch
 
 from nic_tpu_torch.checkpoint import load_model
 from nic_tpu_torch.infer.bb import BB_NO_SGA, BB_SGA, BBLatentOptimizer
-from nic_tpu_torch.tools.profile_sga import categorize, smi
+from nic_tpu_torch.tools.profile_sga import kernel_table, smi, summarize, table_lines
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -40,24 +40,8 @@ def profile_phase(opt, x, spec, steps):
     opt.optimize(x, 0.01, spec)
     t = opt.last_timing
     loop_ms = t["rd_ms"] + t["rate_ms"]
-    kernels = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(evt.name, [0.0, 0])
-            k[0] += evt.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    device_ms = sum(v[0] for v in kernels.values())
-    by_cat = {}
-    for name, (ms, n) in kernels.items():
-        c = by_cat.setdefault(categorize(name), [0.0, 0])
-        c[0] += ms
-        c[1] += n
-    summary = dict(
-        steps=steps, step_ms=loop_ms / steps, device_busy_ms_per_step=device_ms / steps,
-        device_idle_share=max(0.0, 1.0 - device_ms / loop_ms),
-        kernels_per_step=sum(v[1] for v in kernels.values()) / steps,
-        categories={c: dict(ms_per_step=v[0] / steps, launches_per_step=v[1] / steps)
-                    for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1][0])})
+    kernels = kernel_table(prof)
+    summary = dict(steps=steps, step_ms=loop_ms / steps, **summarize(kernels, steps, loop_ms))
     return summary, kernels
 
 
@@ -82,11 +66,7 @@ def main(argv=None):
     lines = []
     for name, spec in phases.items():
         summary[name], kernels = profile_phase(opt, x, spec, args.steps)
-        lines += [f"{name}: {json.dumps(summary[name])}",
-                  f"{'ms/step':>9} {'n/step':>7}  category | kernel"]
-        lines += [f"{ms / args.steps:9.4f} {n / args.steps:7.2f}  {categorize(k)} | {k}"
-                  for k, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])]
-        lines.append("")
+        lines += [f"{name}: {json.dumps(summary[name])}", *table_lines(kernels, args.steps), ""]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -65,6 +65,52 @@ def categorize(name):
     return "other"
 
 
+def kernel_table(prof):
+    """{kernel name: [device ms, launches]} over a profiler window's device
+    events. A user annotation (an optimizer step's range) is no kernel."""
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            k = kernels.setdefault(evt.name, [0.0, 0])
+            k[0] += evt.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    return kernels
+
+
+def summarize(kernels, steps, loop_ms):
+    """Per-step figures of a kernel table over ``steps`` steps that took
+    ``loop_ms`` without the profiler: device busy, idle share, kernels, the
+    convolutions' tensor-core share and each category's time and share."""
+    device_ms = sum(v[0] for v in kernels.values())
+    by_cat = {}
+    for name, (ms, n) in kernels.items():
+        c = by_cat.setdefault(categorize(name), [0.0, 0])
+        c[0] += ms
+        c[1] += n
+    conv = [(n, ms) for n, (ms, _) in kernels.items()
+            if categorize(n) == "convolution (cuDNN)"]
+    conv_ms = sum(ms for _, ms in conv)
+    return dict(
+        device_busy_ms_per_step=device_ms / steps,
+        device_idle_share=max(0.0, 1.0 - device_ms / loop_ms),
+        kernels_per_step=sum(v[1] for v in kernels.values()) / steps,
+        conv_tensor_core_share=(sum(ms for n, ms in conv if on_tensor_cores(n)) / conv_ms
+                                if conv_ms else 0.0),
+        categories={c: dict(ms_per_step=v[0] / steps, launches_per_step=v[1] / steps,
+                            share=v[0] / device_ms)
+                    for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1][0])},
+    )
+
+
+def table_lines(kernels, steps):
+    """The kernel table as lines of text, the most time first."""
+    lines = [f"{'ms/step':>9} {'n/step':>7}  category | kernel"]
+    lines += [f"{ms / steps:9.4f} {n / steps:7.2f}  {categorize(name)} | {name}"
+              for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])]
+    return lines
+
+
 def smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -101,44 +147,21 @@ def main(argv=None):
     long_ms_per_step = opt.last_timing["loop_ms"] / SGA.iterations
     card_after = smi("clocks.sm,power.draw,temperature.gpu")
 
-    kernels = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(evt.name, [0.0, 0])
-            k[0] += evt.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    device_ms = sum(v[0] for v in kernels.values())
-    by_cat = {}
-    for name, (ms, n) in kernels.items():
-        c = by_cat.setdefault(categorize(name), [0.0, 0])
-        c[0] += ms
-        c[1] += n
+    kernels = kernel_table(prof)
     steps = args.steps
-    conv = [(n, ms) for n, (ms, _) in kernels.items()
-            if categorize(n) == "convolution (cuDNN)"]
-    conv_ms = sum(ms for _, ms in conv)
-    conv_tc_ms = sum(ms for n, ms in conv if on_tensor_cores(n))
     summary = dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi("name,power.limit"),
         dtype=args.dtype, steps=steps, step_ms_profiled=loop_ms / steps, step_ms=loop_ms_plain / steps,
         full_run_steps=SGA.iterations, full_run_step_ms=long_ms_per_step,
         clocks_power_temp_before_full_run=card_before,
         clocks_power_temp_after_full_run=card_after,
-        device_busy_ms_per_step=device_ms / steps,
         # Busy time from the profiled run, against the step without the profiler.
-        device_idle_share=max(0.0, 1.0 - device_ms / loop_ms_plain),
-        kernels_per_step=sum(v[1] for v in kernels.values()) / steps,
-        conv_tensor_core_share=conv_tc_ms / conv_ms if conv_ms else 0.0,
-        categories={c: dict(ms_per_step=v[0] / steps, launches_per_step=v[1] / steps,
-                            share=v[0] / device_ms)
-                    for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1][0])},
+        **summarize(kernels, steps, loop_ms_plain),
     )
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         f.write(json.dumps(summary, indent=1) + "\n\n")
-        f.write(f"{'ms/step':>9} {'n/step':>7}  category | kernel\n")
-        for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
-            f.write(f"{ms / steps:9.4f} {n / steps:7.2f}  {categorize(name)} | {name}\n")
+        f.write("\n".join(table_lines(kernels, steps)) + "\n")
     print(json.dumps(summary))
 
 

@@ -199,12 +199,22 @@ def test_params_from_jax_checks_the_model(committed):
 
 
 def test_training_is_refused_with_the_roadmap(small):
+    """A training forward with no source of noise is refused (nic_tpu's
+    "training=True requires rng"); given its draws it runs, crops nothing
+    and bounds sigma by sqrt(VARIANCE_UPPER_BOUND_BB_TRAIN)."""
     _, _, model = small
     x = torch.zeros(1, 64, 64, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(x, torch.zeros(1, 4, 4, 16), training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.hyper_synthesize(torch.zeros(1, 4, 4, 16), training=True)
+    with pytest.raises(ValueError, match="generator"):
+        model(x, torch.zeros(1, 1, 1, 16), training=True)
+    with pytest.raises(ValueError, match="eps or a generator"):
+        model(x, training=True)
+    out = model(x, torch.zeros(1, 1, 1, 16), training=True,
+                noise=torch.zeros(1, 4, 4, 16))
+    assert out["x_tilde"].shape == (1, 64, 64, 3) and out["mu"].shape == (1, 4, 4, 16)
+    z = 1e3 * torch.ones(1, 1, 1, 16)
+    sigma = model.hyper_synthesize(z, training=True)[1]
+    bound = float(np.float32(10.0 ** 0.5))
+    assert float(sigma.max()) <= bound < float(model.hyper_synthesize(z)[1].max())
 
 
 # ----------------------------------------------------------------- engine

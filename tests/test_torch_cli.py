@@ -1,7 +1,9 @@
 """The port's command line, on the CPU: ``sga``, ``map``, ``ste`` and
 ``danneal compress --device cpu`` against nic_tpu's CLI on the same
-checkpoint and images, the methods' streams, the refusals of what is not
-ported, the device policy, and the port's independence from JAX.
+checkpoint and images, the methods' streams, ``train`` (a run served by
+``compress`` -> ``decompress``, a resume, the bits-back model, ``--retries``)
+and ``learned_prior``, the refusals of what is not ported, the device
+policy, and the port's independence from JAX.
 
 Tolerance: float32 values 1e-5 relative, elementwise with an absolute floor
 of the same fraction of the largest reference magnitude.
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from flax import traverse_util
+from PIL import Image
 
 from nic_tpu.cli.main import main as jax_main
 from nic_tpu.models.mbt2018 import MeanScaleHyperprior as JaxMBT
@@ -199,14 +202,95 @@ def test_unported_parts_exit_nonzero(workdir, extra, script, before):
 
 
 @pytest.mark.parametrize("argv", [
-    ["sga", "train", "--train_glob", "x/*.png"],
-    ["mbt2018_bb", "train", "--train_glob", "x/*.png"],
-    ["learned_prior", "--num_channels", "4", "--data_path", "x.npy"],
+    ["mbt2018", "train", "--train_glob", "x/*.png", "--num_processes", "2"],
+    ["mbt2018_bb", "train", "--train_glob", "x/*.png", "--coordinator_address", "h:1"],
+    ["learned_prior", "--num_channels", "4", "--data_path", "x.npy", "--plot"],
 ])
 def test_unported_commands_exit_nonzero(argv):
     with pytest.raises(SystemExit) as info:
         main(argv)
     assert "not ported yet (ROADMAP.md)" in str(info.value.code)
+
+
+@pytest.mark.parametrize("script", ["sga", "bb_plain"])
+def test_method_scripts_refuse_train_as_nic_tpu(script):
+    for cli in (main, jax_main):
+        with pytest.raises(SystemExit) as info:
+            cli([script, "train", "--train_glob", "x/*.png"])
+        assert str(info.value.code) == f"{script} does not support training."
+
+
+@pytest.fixture(scope="module")
+def train_corpus(tmp_path_factory):
+    """Three 96x128 photo crops as PNGs."""
+    d = tmp_path_factory.mktemp("train_corpus")
+    photos = np.load(os.path.join(ROOT, "data_real", "eval_photos.npy"))
+    for i in range(3):
+        Image.fromarray(photos[i, 100:196, 200:328]).save(d / f"img{i}.png")
+    return d
+
+
+def _train_argv(ckpt, corpus, script="mbt2018", last_step=4, *extra):
+    return ["--device", "cpu", "--num_filters", "8", "--checkpoint_dir", str(ckpt), script,
+            "train", "--train_glob", str(corpus / "img*.png"), "--patchsize", "64",
+            "--batchsize", "2", "--last_step", str(last_step), "--steps_per_call", "2",
+            *extra]
+
+
+def test_train_then_serve_the_run_exactly(workdir, train_corpus, tmp_path):
+    """mbt2018 train at nf=8 writes nic_tpu's run files and resumes; its
+    newest parameters then compress and decompress the crops exactly."""
+    ckpt = tmp_path / "ckpt"
+    trainer = main(_train_argv(ckpt, train_corpus))
+    run = ckpt / RUN
+    assert trainer.step == 4 and len(trainer.losses) == 4
+    assert {"args.json", "record.txt", "metrics.jsonl", "params-4.npz", "ckpt-4.pt",
+            "mbt2018.py"} == set(os.listdir(run))
+    args = json.load(open(run / "args.json"))
+    assert args["num_filters"] == 8 and args["steps_per_call"] == 2
+    assert main(_train_argv(ckpt, train_corpus, "mbt2018", 6)).last_timing["steps"] == 2
+    assert sorted(os.listdir(run))[:3] == ["args.json", "ckpt-6.pt", "mbt2018.py"]
+    stream, png = tmp_path / "t.ntc", tmp_path / "t.png"
+    common = ["--device", "cpu", "--num_filters", "8", "--checkpoint_dir", str(ckpt), "mbt2018"]
+    out = main(common + ["compress", RUN, str(workdir / "crops.npy"), str(stream),
+                         "--results_dir", str(tmp_path / "res")])
+    dec = main(common + ["decompress", RUN, str(stream), str(png)])
+    np.testing.assert_array_equal(np.round(dec["x_hat"] * 255.0).astype(np.uint8),
+                                  out["pixels"])
+
+
+def test_train_bits_back_from_mbt2018(train_corpus, tmp_path):
+    donor = tmp_path / "donor"
+    main(_train_argv(donor, train_corpus, "mbt2018", 2))
+    trainer = main(_train_argv(tmp_path / "bb", train_corpus, "mbt2018_bb", 2, "--init_from",
+                               str(donor / RUN), "--init_from_partial"))
+    assert trainer.step == 2 and np.all(np.isfinite(trainer.losses))
+    assert os.path.exists(tmp_path / "bb" / "mbt2018_bb-num_filters=8-lmbda=0.01" / "params-2.npz")
+
+
+def test_learned_prior_writes_its_weights(tmp_path):
+    np.save(tmp_path / "y.npy", np.random.default_rng(0).normal(0, 2, (64, 4)).astype(np.float32))
+    save_dir = main(["learned_prior", "--device", "cpu", "--num_channels", "4", "--data_path",
+                     str(tmp_path / "y.npy"), "--its", "3", "--checkpoint_dir", str(tmp_path)])
+    assert sorted(os.listdir(save_dir)) == ["args.json", "prior_model.npz", "record.json"]
+
+
+def test_retries_rerun_training_after_a_crash(train_corpus, tmp_path, monkeypatch):
+    """The first attempt finds no corpus and crashes; the supervisor's pause
+    before the second brings the corpus, which then trains to the end."""
+    from nic_tpu_torch.train import supervisor
+
+    corpus = tmp_path / "late_corpus"
+
+    def pause(_secs):
+        shutil.copytree(train_corpus, corpus)
+
+    monkeypatch.setattr(supervisor.time, "sleep", pause)
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(SystemExit) as info:
+        main(_train_argv(tmp_path / "ckpt", corpus, "mbt2018", 2, "--retries", "1"))
+    assert info.value.code == 0
+    assert os.path.exists(tmp_path / "ckpt" / RUN / "params-2.npz")
 
 
 _IMPORT_CHECK = r"""

@@ -532,3 +532,103 @@ def test_bb_steps_make_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.all(np.isfinite(losses.cpu().numpy()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_parameter_gradients_through_a_fresh_layer(inverse):
+    """K1's forward and its backward's dgamma and dbeta (``gdn_backward``,
+    torch matmuls) on the card, through GDN.effective_params at a fresh init
+    (gamma's off-diagonals exactly at their bound 2^-18, where the bound
+    passes the gradient), at the training step's smallest shape: the
+    forward against the plain version within 1e-5 (max-norm relative, fp32
+    sums in another order), the gradients against autograd through it
+    within 1e-4 of each gradient's L2 norm."""
+    _need_card()
+    from nic_tpu_torch.models.layers import GDN
+
+    x, _, _, w = _inputs(8192, 192, seed=7)
+    layer = GDN(192, inverse=inverse).to("cuda")
+    ref = GDN(192, inverse=inverse).to("cuda")
+    before = gdn_cuda.launches
+    out = layer(x)
+    torch.sum(out * w).backward()
+    assert gdn_cuda.launches == before + 1
+    beta, gamma = ref.effective_params()
+    want = gdn_cuda.gdn_reference(x, beta, gamma, inverse)
+    torch.sum(want * w).backward()
+    assert float((out - want).abs().max() / want.abs().max()) <= 1e-5
+    off = ~torch.eye(192, dtype=torch.bool, device="cuda")
+    assert bool(torch.all(layer.gamma.detach()[off] == 2.0 ** -18))
+    assert int(torch.count_nonzero(layer.gamma.grad[off])) > 0
+    for got, want in ((layer.beta.grad, ref.beta.grad), (layer.gamma.grad, ref.gamma.grad)):
+        assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mbt2018", "mbt2018_bb"])
+def test_train_step_card_vs_cpu(model):
+    """One optimizer step at nf=16, batch 2, patch 64 from the same init,
+    batch and noise: the card's gradients before the step within 1e-4 of
+    each leaf's L2 norm and its loss within 1e-5 of the CPU's (fp32 sums in
+    another order); its parameters within 2 lr (Adam's near-zero
+    gradients) and 1e-2 lr on average over each leaf."""
+    _need_card()
+    import numpy as np
+
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=model, num_filters=16, batchsize=2, patchsize=64)
+    rng = np.random.default_rng(3)
+    batch = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    first = (rng.uniform(-0.5, 0.5, (2, 1, 1, 16)) if model == "mbt2018"
+             else rng.standard_normal((2, 1, 1, 16)))
+    noise = tuple(torch.from_numpy(a.astype(np.float32))
+                  for a in (first, rng.uniform(-0.5, 0.5, (2, 4, 4, 16))))
+    card, cpu = Trainer(cfg, device="cuda"), Trainer(cfg, device="cpu")
+    grads = []
+    for trainer in (card, cpu):
+        x = torch.from_numpy(batch).to(trainer.device).float() / 255.0
+        trainer.loss(x, tuple(n.to(trainer.device) for n in noise))[0].backward()
+        # The bits-back model's unused quantiles get no gradient.
+        grads.append({k: p.grad.detach().cpu().double()
+                      for k, p in trainer.model.named_parameters() if p.grad is not None})
+        trainer.optimizer.zero_grad(set_to_none=True)
+    assert grads[0].keys() == grads[1].keys()
+    for k, want in grads[1].items():
+        diff = torch.linalg.vector_norm(grads[0][k] - want)
+        assert float(diff) <= 1e-4 * float(torch.linalg.vector_norm(want)), k
+    before = gdn_cuda.launches
+    got = card.train_step(batch, noise)
+    assert gdn_cuda.launches == before + 6
+    want = cpu.train_step(batch, noise)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+    a, b = card.params_to_jax(), cpu.params_to_jax()
+    for k in b:
+        lr = cfg.aux_lr if model == "mbt2018" and k.endswith("quantiles") else cfg.main_lr
+        assert np.abs(a[k] - b[k]).max() <= 2 * lr, k
+        assert np.abs(a[k] - b[k]).mean() <= 1e-2 * lr, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mbt2018", "mbt2018_bb"])
+def test_train_steps_make_no_host_sync(model):
+    """Training steps on a batch already on the card, under
+    ``torch.cuda.set_sync_debug_mode("error")``: the noise, the forward, K1,
+    the backward and Adam never wait for the device."""
+    _need_card()
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(model=model, num_filters=16, batchsize=2, patchsize=64),
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = torch.randint(0, 256, (3, 2, 64, 64, 3), dtype=torch.uint8, device="cuda",
+                            generator=gen)
+    trainer.run_steps(batches[:1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.run_steps(batches)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trainer.step == 4
