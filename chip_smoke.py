@@ -39,11 +39,11 @@ Phases, each printed with its elapsed seconds:
                route of nic_tpu's bench), K1's launches counted from zero, ms
                per step beside phase 5's fp32 figure;
  10. methods - ``map``, ``ste``, ``unoise`` and ``danneal compress`` through the
-               CLI (fp32) at the specs' own iteration counts, K1's launches
+               CLI (fp32), at most 500 steps each, K1's launches
                counted from zero on each; unoise's and danneal's streams decode
                exactly, map writes none; and the first 20 steps of each method
                on a 64x64 crop, the card against the port's CPU path.
- 11. bits-back - ``bb_plain``, ``bb_sga`` (2000 RD + 2000 rate steps) and
+ 11. bits-back - ``bb_plain``, ``bb_sga`` (500 RD + 2000 rate steps) and
                ``bb_no_sga`` (1000 rate steps) ``compress`` of the photos to a
                BB-ANS stream and ``decompress`` of it, through the CLI (fp32) on
                the lambda=0.01 bits-back checkpoint, K1's launches counted from
@@ -76,6 +76,27 @@ Phases, each printed with its elapsed seconds:
                the bits-back checkpoint, and its card against CPU steps as (e);
                (h) ``learned_prior`` on the card, 100 iterations on the photos'
                y: its loss falls.
+ 13. multi-GPU on one card - (a) K1 against its plain version (GDN and IGDN,
+               fp32) and timed at the rows a rank sees: 2 row-shards of a photo
+               (M = 24576, 6144, 1536) and 2-rank DP training (65536, 16384,
+               4096); (b) spatial: 2 gloo ranks share the card, one 384x512
+               photo: the amortized latents, danneal (25 steps) and SGA (2000,
+               injected global noise) against the unsharded card run, K1's
+               launches per rank, each rank's ms/step and, over a timed
+               window, its collectives' and device-idle shares; (c) DP
+               inference, SGA 2000 with injected noise on 2 photos at NCCL
+               world size 1 (y and z equal to the unsharded run) and with 2
+               gloo ranks; (d) DP training
+               from the lambda=0.01 checkpoint (nf=192, batch 8, patch 256,
+               20 steps, injected noise) at NCCL world size 1 and with 2 gloo
+               ranks: the first averaged gradients, the losses, the
+               parameters against the unsharded card run, rank 0 alone
+               writing; (e) ``sga compress --data_parallel`` (NCCL at world
+               size 1) and ``--spatial`` through the CLI, 200 steps, each
+               stream decoded exactly. The gates of (b) to (d) run both sides
+               with cuDNN's deterministic algorithms, and hold the sharded
+               runs tightly over their first steps (EARLY_STEPS); the
+               timings use its default algorithms.
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -145,9 +166,13 @@ JAX_SGA_RECORD = dict(est_bpp=0.5141, psnr=30.52)
 # another order flip a few roundings of y and z, each worth a few bits.
 JAX_BF16_AMORTIZED_BPP = 0.5311458706855774
 JAX_BF16_AMORTIZED_PSNR = 29.18467140197754
-# The four other methods, run by the CLI at their specs' own iteration
-# counts (map and ste stop early).
+# The four other methods, run by the CLI for at most METHOD_ITS steps (map
+# and ste stop early, after 300-600). Cut from the specs' 2000 to keep the
+# whole run within half its time limit: the gates (streams exact, the RD
+# objective below amortized, the first steps against the CPU) hold at this
+# depth.
 METHODS = ("map", "ste", "unoise", "danneal")
+METHOD_ITS = 500
 # Each method's first steps on a 64x64 crop, the card against the port's CPU
 # path (fp32; unoise fed the same uniform draws on both): the loss of every
 # step, max-norm relative. fp32 sums in another order, carried through
@@ -155,8 +180,10 @@ METHODS = ("map", "ste", "unoise", "danneal")
 METHOD_STEPS = 20
 METHOD_LOSS_RTOL = 1e-3
 
-# Phase 11, bits-back, on the lambda=0.01 bits-back checkpoint.
+# Phase 11, bits-back, on the lambda=0.01 bits-back checkpoint; bb_sga's RD
+# phase cut from 2000 steps, as METHOD_ITS (its rate phase keeps the spec's).
 BB_RUN = "mbt2018_bb-num_filters=192-lmbda=0.01"
+BB_SGA_RD_ITS = 500
 BB_SCRIPTS = ("bb_plain", "bb_sga", "bb_no_sga")
 # nic_tpu's `bb_plain compress` of the same photos, on the CPU (seed 0):
 #   JAX_PLATFORMS=cpu python -m nic_tpu --num_filters 192 \
@@ -282,6 +309,57 @@ QUANTILE_KINK = 1e-5
 # from a broken one.
 SERVE_RD_FALL = 0.05
 PRIOR_ITS = 100
+
+# Phase 13, multi-GPU on one card. K1's rows on a rank: 2 row-shards of one
+# 384x512 photo (g_a's GDN and g_s's IGDN at 96x256, 48x128, 24x64 rows of
+# 1 image), and 2-rank DP training at batch 4 each, patch 256.
+SPATIAL_ROWS = (24576, 6144, 1536)
+DP_TRAIN_ROWS = (65536, 16384, 4096)
+# Spatial against the unsharded card run (nic_tpu's tests/test_spatial.py):
+# the amortized latents 2e-5 absolute; after danneal's 25 steps 99.9 % of
+# the rounded y equal and bpp and PSNR within 1e-3 (the halo slab's
+# convolutions sum in another order, and Adam carries it).
+SPATIAL_DANNEAL_ITS = 25
+SPATIAL_INIT_ATOL = 2e-5
+SPATIAL_Y_EQUAL = 0.999
+SPATIAL_METRIC_RTOL = 1e-3
+# SGA's 2000 Adam steps carry any last-bit difference into a share of the
+# rounded y. On an H100 the unsharded run with cuDNN's default algorithms
+# differs from the same run with its deterministic ones in 1.2 % of y, bpp
+# 7e-4 and PSNR 1e-4 (one photo; two: 0.9 %, 7e-4, 9e-5), and a sharded run
+# sums in another order still (other shapes, other kernels). So a sharded
+# SGA run is held tightly where that chaos cannot yet mask a fault, over its
+# first EARLY_STEPS steps' losses and its first step's y and z gradients
+# (EARLY_RTOL, L2 relative); and after its 2000 steps at fixed limits about
+# 2.5 times the largest difference measured so: LONG_Y_UNEQUAL of y unequal,
+# LONG_METRIC_RTOL on bpp and PSNR.
+EARLY_STEPS = 20
+EARLY_RTOL = 1e-5
+LONG_Y_UNEQUAL = 0.03
+LONG_METRIC_RTOL = 5e-3
+SPATIAL_SEED = 7
+# DP inference against the unsharded card run. At NCCL world size 1 a rank
+# computes the unsharded batch itself: y and z equal, bpp within 1e-6. Two
+# ranks run batch 1 each against the unsharded batch 2, and cuDNN's and
+# cuBLAS's kernels (chosen by shape) sum in another order at another batch
+# size: held as spatial's SGA is.
+DP_SEED = 8
+DP_BPP_RTOL = 1e-6
+# DP training against the unsharded card run: TRAIN_GRAD_RTOL on the first
+# averaged gradients, the losses of DP_TRAIN_STEPS steps within 1e-5, and
+# after TRAIN_CMP_STEPS steps every |dparam| within TRAIN_PARAM_LRS lr and
+# each leaf's mean within TRAIN_PARAM_MEAN_LRS lr. Adam's first steps move a
+# parameter by about lr whatever its gradient's size, so an element whose
+# gradient alone differs (a GDN gamma below its bound, where the bound's
+# gate reads the gradient's sign: the global batch's, GDN.average_grad)
+# shows here and not in the gradients' norms.
+DP_TRAIN_STEPS = 20
+DP_LOSS_RTOL = 1e-5
+# Steps of a rank's timed window (collectives synchronised, torch.profiler).
+WINDOW_STEPS = 50
+# SGA steps of the CLI's --data_parallel and --spatial runs in (e), which
+# check the CLI and the streams; (b) to (d) hold the paths at full depth.
+CLI_ITS = 200
 
 T0 = time.perf_counter()
 
@@ -843,8 +921,8 @@ def run_bf16_sga(model_bf16_cpu, amortized_bf16, fp32_ms_step):
 
 
 def run_methods(amortized, workdir):
-    """map, ste, unoise and danneal compress through the CLI at their specs'
-    own iteration counts, K1's launches counted from zero on each. unoise
+    """map, ste, unoise and danneal compress through the CLI, at most
+    METHOD_ITS steps, K1's launches counted from zero on each. unoise
     (quantized-z mean) and danneal write streams that decompress exactly;
     map names an output file and writes none."""
     import numpy as np
@@ -858,7 +936,8 @@ def run_methods(amortized, workdir):
         common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, script]
         stream = os.path.join(workdir, f"photos_{script}.ntc")
         argv = common + ["compress", RUN, PHOTOS, "--results_dir",
-                         os.path.join(workdir, f"results_{script}")]
+                         os.path.join(workdir, f"results_{script}"), "--sga_its",
+                         str(METHOD_ITS)]
         if script != "ste":
             argv.insert(len(common) + 3, stream)
         gdn_cuda.launches = 0
@@ -875,7 +954,7 @@ def run_methods(amortized, workdir):
         for k, v in res.items():
             if not np.all(np.isfinite(v)):
                 raise AssertionError(f"{script} compress: {k} is not finite")
-        if not 1 <= steps <= SGA_ITS or launches < 3 * steps:
+        if not 1 <= steps <= METHOD_ITS or launches < 3 * steps:
             raise AssertionError(f"{script} ran {steps} steps with {launches} K1 launches")
         path = dict(steps=steps, ms_per_step=loop_ms / steps, k1_launches=launches,
                     est_bpp=float(res["est_bpp"].mean()), psnr=float(res["psnr"].mean()),
@@ -953,7 +1032,8 @@ def run_bits_back(workdir):
         t = time.perf_counter()
         gdn_cuda.launches = 0
         out = cli_main(common + ["compress", BB_RUN, PHOTOS, stream, "--results_dir",
-                                 os.path.join(workdir, f"results_{script}")])
+                                 os.path.join(workdir, f"results_{script}"),
+                                 "--sga_its", str(BB_SGA_RD_ITS)])
         encode_launches = gdn_cuda.launches
         gdn_cuda.launches = 0
         dec = cli_main(common + ["decompress", BB_RUN, stream, png])
@@ -1464,6 +1544,528 @@ def run_learned_prior(model_cpu, workdir):
                 loss_last=losses[-1], seconds=secs)
 
 
+def deterministic(on):
+    """cuDNN's deterministic algorithms on or off. Its default
+    transposed-conv and weight-gradient algorithms add with atomics, so two
+    runs of the same step differ in the last bits; the
+    sharded-against-unsharded gates run both sides with it on."""
+    import torch
+
+    torch.backends.cudnn.deterministic = on
+
+
+class CardNoise:
+    """noise_fn(step, name, shape) of sga's Gumbel draws made on the card by
+    a generator seeded from (seed, step, name): every rank draws the same
+    global tensor as the unsharded run. It pickles, so spawned ranks take it."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __call__(self, step, name, shape):
+        import numpy as np
+        import torch
+
+        from nic_tpu_torch.ops.quantize import draw_gumbel
+
+        key = np.random.SeedSequence([self.seed, step, ("y", "z").index(name)])
+        gen = torch.Generator(device="cuda").manual_seed(int(key.generate_state(1)[0]))
+        return draw_gumbel(shape, gen, "cuda")
+
+
+def first_temperature():
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.ops.schedules import annealed_temperature
+
+    return annealed_temperature(0, r=SGA.annealing_rate, ub=SGA.temperature_ub,
+                                scheme=SGA.annealing_scheme, t0=SGA.t0)
+
+
+def dp_first_step(opt, x, seed):
+    """SGA's first step under CardNoise(seed) on a LatentOptimizer's ranks
+    (each its images; one rank: the unsharded run): the global RD objective
+    and its gradients in y and z, gathered whole."""
+    import torch
+
+    from nic_tpu_torch.infer.engine import Latents, _amortized_init, _rd_loss
+
+    comm, batch = opt.comm, x.shape[0]
+    lo, hi = comm.shard(batch)
+    x_local = opt._tensor(x)[lo:hi]
+    y, z = (v.clone().requires_grad_(True) for v in _amortized_init(opt.model, x_local))
+    noise = Latents(*(CardNoise(seed)(0, name, (batch,) + tuple(v.shape[1:]) + (2,))[lo:hi]
+                      for name, v in (("y", y), ("z", z))))
+    loss, _ = _rd_loss(opt.model, Latents(y, z), x_local, LMBDA, first_temperature(), "sga",
+                       noise, "mse", batch)
+    gy, gz = torch.autograd.grad(loss, (y, z))
+    return dict(loss=float(comm.all_reduce(loss.detach().clone())),
+                gy=comm.all_gather_cat(gy, 0).cpu().numpy(),
+                gz=comm.all_gather_cat(gz, 0).cpu().numpy())
+
+
+def spatial_first_step(sp, x, seed):
+    """``dp_first_step`` on a SpatialLatentOptimizer's ranks, each its rows
+    of the one image ``x`` (on the grid), z replicated."""
+    import torch
+
+    from nic_tpu_torch.infer.engine import Latents
+    from nic_tpu_torch.parallel.spatial import _loss_local, _slice_rows
+
+    comm = sp.comm
+    x_local = sp._local_rows(x)
+    y, z = (v.clone().requires_grad_(True) for v in sp._init_local(x_local))
+    rows = y.shape[1]
+    noise_y = CardNoise(seed)(0, "y", (1, rows * comm.size) + tuple(y.shape[2:]) + (2,))
+    noise = Latents(_slice_rows(noise_y, rows, comm),
+                    CardNoise(seed)(0, "z", tuple(z.shape) + (2,)))
+    loss, _ = _loss_local(sp.model, Latents(y, z), x_local, LMBDA, x.shape[1] * x.shape[2],
+                          first_temperature(), "sga", noise, comm)
+    gy, gz = torch.autograd.grad(loss, (y, z))
+    return dict(loss=float(comm.all_reduce(loss.detach().clone())),
+                gy=comm.all_gather_cat(gy, 1).cpu().numpy(),
+                gz=comm.all_reduce(gz).cpu().numpy())
+
+
+def check_k1_multi():
+    """(a) K1 against its plain version at the rows a rank's GDN and IGDN
+    see on this slice's paths (fp32, GDN and IGDN), and its times beside
+    the bound, the plain version and cuBLAS's addmm (IGDN)."""
+    import torch
+
+    from nic_tpu_torch.ops.gdn_cuda import gdn_forward_kernel, gdn_kernel, gdn_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    table, max_abs = [], 0.0
+    tol = K1_RTOL["float32"]
+    for path, rows_list in (("spatial", SPATIAL_ROWS), ("dp_train", DP_TRAIN_ROWS)):
+        for rows in rows_list:
+            x, beta, gamma = k1_inputs(rows, gen)
+            errs = {}
+            with torch.no_grad():
+                for inverse in (False, True):
+                    out = gdn_kernel(x, beta, gamma, inverse)
+                    ref = gdn_reference(x, beta, gamma, inverse)
+                    torch.cuda.synchronize()
+                    errs["IGDN" if inverse else "GDN"] = rel_err(out, ref)
+                    max_abs = max(max_abs, float((out - ref).abs().max()))
+                xsq = x * x
+                ms = time_ms(lambda: gdn_forward_kernel(x, gamma, beta, True))
+                plain_ms = time_ms(lambda: gdn_reference(x, beta, gamma, True))
+                library_ms = time_ms(lambda: torch.addmm(beta, xsq, gamma))
+            bound, bound_by, _ = k1_bound_ms(rows, "float32")
+            table.append(dict(rows=rows, path=path, dtype="float32", rel_err=errs, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                              library_ms=library_ms))
+            log(f"K1 at {path}'s M={rows} C={CHANNELS} float32: rel err GDN "
+                f"{errs['GDN']:.2e}, IGDN {errs['IGDN']:.2e} (tolerance {tol:g}); IGDN kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, addmm [cuBLAS] {library_ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({bound_by})")
+            if not max(errs.values()) <= tol:
+                raise AssertionError(f"K1 disagrees with its plain version at M={rows}")
+    return table, max_abs
+
+
+def rank_window(opt, run, steps):
+    """A rank's step split over ``steps`` more steps of ``run``: wall ms per
+    step with the collectives synchronised on both sides, their share, and
+    the rank's device-busy share (torch.profiler)."""
+    import torch
+
+    from nic_tpu_torch.tools.profile_sga import kernel_table
+
+    comm = opt.comm
+    comm.timed, comm.ms = True, 0.0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    comm.timed = False
+    busy = sum(ms for ms, _ in kernel_table(prof).values())
+    return dict(steps=steps, ms_per_step=wall / steps,
+                collectives_ms_per_step=comm.ms / steps,
+                device_busy_ms_per_step=busy / steps, collectives_share=comm.ms / wall,
+                device_idle_share=1.0 - busy / wall)
+
+
+def spatial_rank(rank, device, x, its):
+    """(b) on one rank: amortized init, danneal, SGA with injected noise (K1's
+    launches and the collectives counted), then a timed window."""
+    import torch.distributed as dist
+
+    from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.infer.methods import DANNEAL, SGA
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.parallel.spatial import SpatialLatentOptimizer
+
+    deterministic(True)
+    _, model = load_model(CKPT_DIR, RUN, CHANNELS, device)
+    sp = SpatialLatentOptimizer(model, device, dist.group.WORLD)
+    y0, z0 = sp.amortized_init(x)
+    out = dict(y0=y0.cpu().numpy(), z0=z0.cpu().numpy(),
+               first=spatial_first_step(sp, x, SPATIAL_SEED))
+    out["danneal"] = sp.optimize(x, LMBDA, DANNEAL.replace(iterations=SPATIAL_DANNEAL_ITS))
+    gdn_cuda.launches, sp.comm.calls, sp.comm.bytes = 0, 0, 0
+    out["sga"] = sp.optimize(x, LMBDA, SGA.replace(iterations=its),
+                             noise_fn=CardNoise(SPATIAL_SEED))
+    out.update(k1_launches=gdn_cuda.launches, timing=sp.last_timing,
+               collectives=sp.comm.calls, collective_bytes=sp.comm.bytes)
+    deterministic(False)
+    out["window"] = rank_window(sp, lambda n: sp.optimize(
+        x, LMBDA, SGA.replace(iterations=n), noise_fn=CardNoise(SPATIAL_SEED)), WINDOW_STEPS)
+    return out
+
+
+def dp_infer_rank(rank, device, x, its):
+    """(c) on one rank: SGA over its slice of the photos, injected noise."""
+    import torch.distributed as dist
+
+    from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.ops import gdn_cuda
+
+    deterministic(True)
+    _, model = load_model(CKPT_DIR, RUN, CHANNELS, device)
+    opt = LatentOptimizer(model, device, dist.group.WORLD)
+    first = dp_first_step(opt, x, DP_SEED)
+    gdn_cuda.launches = 0
+    res = opt.optimize(x, LMBDA, SGA.replace(iterations=its), noise_fn=CardNoise(DP_SEED))
+    out = dict(res=res, first=first, k1_launches=gdn_cuda.launches, timing=opt.last_timing,
+               collectives=opt.comm.calls)
+    deterministic(False)
+    out["window"] = rank_window(opt, lambda n: opt.optimize(
+        x, LMBDA, SGA.replace(iterations=n), noise_fn=CardNoise(DP_SEED)), WINDOW_STEPS)
+    return out
+
+
+def dp_train_batches():
+    """DP_TRAIN_STEPS global batches of 8 random 256^2 crops of the photos,
+    with their uniform noise (z's, y's), from numpy seed 13."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    photos = np.load(PHOTOS)
+    n, h, w, _ = photos.shape
+    batches, noises = [], []
+    for _ in range(DP_TRAIN_STEPS):
+        crops = [photos[rng.integers(n), i:i + 256, j:j + 256]
+                 for i, j in zip(rng.integers(h - 255, size=8), rng.integers(w - 255, size=8))]
+        batches.append(np.stack(crops))
+        noises.append((rng.uniform(-0.5, 0.5, (8, 4, 4, CHANNELS)).astype(np.float32),
+                       rng.uniform(-0.5, 0.5, (8, 16, 16, CHANNELS)).astype(np.float32)))
+    return batches, noises
+
+
+def dp_train_rank(rank, device, workdir):
+    """(d) on one rank (or, with no group, the unsharded run): the first
+    step's averaged gradients before Adam, DP_TRAIN_STEPS steps from the
+    lambda=0.01 checkpoint (the parameters after TRAIN_CMP_STEPS and after
+    all), K1's launches, a save on every rank, then a timed window with
+    cuDNN's default algorithms."""
+    import torch
+    import torch.distributed as dist
+
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    deterministic(True)
+    group = dist.group.WORLD if dist.is_initialized() else None
+    cfg = TrainConfig(num_filters=CHANNELS, batchsize=8, patchsize=256,
+                      init_from=os.path.join(CKPT_DIR, RUN),
+                      checkpoint_dir=os.path.join(workdir, f"rank{rank}"))
+    trainer = Trainer(cfg, device, group)
+    trainer.restore_or_init()
+    batches, noises = dp_train_batches()
+    lo, hi = trainer.comm.shard(8)
+
+    def step(i):
+        b, n = batches[i % DP_TRAIN_STEPS], noises[i % DP_TRAIN_STEPS]
+        trainer.train_step(torch.from_numpy(b[lo:hi]),
+                           tuple(torch.from_numpy(t[lo:hi]) for t in n))
+
+    trainer.backward(torch.from_numpy(batches[0][lo:hi]),
+                     tuple(torch.from_numpy(t[lo:hi]) for t in noises[0]))
+    grads = {k: p.grad.detach().cpu().double()
+             for k, p in trainer.model.named_parameters()} if rank == 0 else None
+    trainer.optimizer.zero_grad(set_to_none=True)
+    gdn_cuda.launches = 0
+    def params():
+        return {k: p.detach().cpu().double() for k, p in trainer.model.named_parameters()}
+
+    params_first = None
+    for i in range(DP_TRAIN_STEPS):
+        step(i)
+        if i == TRAIN_CMP_STEPS - 1 and rank == 0:
+            params_first = params()
+    launches = gdn_cuda.launches
+    trainer._flush_losses()
+    out = dict(grads=grads, losses=list(trainer.losses), k1_launches=launches,
+               params_first=params_first, params=params() if rank == 0 else None,
+               collectives=trainer.comm.calls)
+    trainer.save()
+    rank_dir = os.path.join(workdir, f"rank{rank}")
+    out["wrote"] = sorted(os.listdir(rank_dir)) if os.path.isdir(rank_dir) else []
+    deterministic(False)
+    if group is not None:
+        out["window"] = rank_window(trainer, lambda n: [step(i) for i in range(n)],
+                                    DP_TRAIN_STEPS)
+    return out
+
+
+def check_spatial(model_cpu):
+    """(b) 2 gloo ranks on the card, one 384x512 photo, against the
+    unsharded card run."""
+    import numpy as np
+
+    from nic_tpu_torch.infer.methods import DANNEAL, SGA
+    from nic_tpu_torch.parallel.mesh import spawn
+
+    x = np.load(PHOTOS)[:1].astype(np.float32) / 255.0
+    t = time.perf_counter()
+    ranks = spawn(spatial_rank, 2, (x, SGA_ITS), device="cuda", backend="gloo")
+    secs = time.perf_counter() - t
+    y0, z0, ref, unsharded_ms = unsharded_reference(
+        model_cpu, x, SPATIAL_SEED, danneal=DANNEAL.replace(iterations=SPATIAL_DANNEAL_ITS),
+        sga=SGA.replace(iterations=SGA_ITS))
+    sga = ref["sga"]
+    r0 = ranks[0]
+    e_init = max(float(np.abs(r0["y0"] - y0).max()), float(np.abs(r0["z0"] - z0).max()))
+    gates = dict(danneal=run_gates(r0["danneal"], ref["danneal"], 1.0 - SPATIAL_Y_EQUAL,
+                                   SPATIAL_METRIC_RTOL),
+                 sga_early=early_gates(r0["sga"], sga, r0["first"], ref["first"]),
+                 sga=run_gates(r0["sga"], sga, LONG_Y_UNEQUAL, LONG_METRIC_RTOL))
+    same = all(np.array_equal(r["sga"]["y"], r0["sga"]["y"]) for r in ranks)
+    per_rank = [dict(k1_launches=r["k1_launches"], sga_ms_per_step=r["timing"]["loop_ms"] / SGA_ITS,
+                     collectives=r["collectives"], collective_bytes=r["collective_bytes"],
+                     window=r["window"]) for r in ranks]
+    log(f"spatial, 2 gloo ranks on the card, one 384x512 photo: amortized y, z max abs "
+        f"diff {e_init:.2e} (tolerance {SPATIAL_INIT_ATOL:g}); danneal {SPATIAL_DANNEAL_ITS} "
+        f"its {gates['danneal']}; sga {SGA_ITS} its, injected noise {gates['sga']} "
+        f"(each difference within its limit); est "
+        f"bpp {float(r0['sga']['est_bpp'][0])!r} vs {float(sga['est_bpp'][0])!r}, PSNR "
+        f"{float(r0['sga']['psnr'][0])!r} vs {float(sga['psnr'][0])!r}; ranks agree {same}; "
+        f"per rank {per_rank}; unsharded, default algorithms {unsharded_ms:.3f} ms/step; "
+        f"{secs:.1f} s")
+    if not e_init <= SPATIAL_INIT_ATOL:
+        raise AssertionError("spatial amortized init disagrees with the unsharded run")
+    for name, g in gates.items():
+        if not g["ok"]:
+            raise AssertionError(f"spatial {name} disagrees with the unsharded run: {g}")
+    if not same or any(r["k1_launches"] < 3 * SGA_ITS for r in ranks):
+        raise AssertionError("spatial ranks disagree, or K1 did not run in each rank's "
+                             "g_s IGDNs")
+    return dict(init_max_abs_diff=e_init, gates=gates, per_rank=per_rank,
+                unsharded_ms_per_step=unsharded_ms,
+                est_bpp=float(r0["sga"]["est_bpp"][0]), psnr=float(r0["sga"]["psnr"][0]),
+                seconds=secs)
+
+
+def unsharded_reference(model_cpu, x, seed, **methods):
+    """The unsharded card runs the sharded ones are held against, and SGA's
+    first step, with cuDNN's deterministic algorithms, as the ranks run
+    them; then WINDOW_STEPS SGA steps with its default ones for the
+    unsharded step's time."""
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+
+    card = LatentOptimizer(copy.deepcopy(model_cpu), "cuda")
+    deterministic(True)
+    y0, z0 = (v.cpu().numpy() for v in card.amortized_init(x))
+    out = {name: card.optimize(x, LMBDA, spec, noise_fn=CardNoise(seed))
+           for name, spec in methods.items()}
+    out["first"] = dp_first_step(card, x, seed)
+    deterministic(False)
+    card.optimize(x, LMBDA, methods["sga"].replace(iterations=WINDOW_STEPS),
+                  noise_fn=CardNoise(seed))
+    return y0, z0, out, card.last_timing["loop_ms"] / card.last_timing["steps"]
+
+
+def run_gates(got, ref, y_unequal, metric_rtol):
+    """A sharded run against the unsharded ``ref``: y's unequal share and
+    bpp's and PSNR's largest relative difference, each against its limit;
+    and whether all pass."""
+    import numpy as np
+
+    g = dict(
+        y_unequal=float(np.mean(got["y"] != ref["y"])),
+        bpp_rel=float(np.abs(got["est_bpp"] - ref["est_bpp"]).max() / ref["est_bpp"].max()),
+        psnr_rel=float(np.abs(got["psnr"] - ref["psnr"]).max() / ref["psnr"].max()),
+        limits=dict(y_unequal=y_unequal, bpp_rel=metric_rtol, psnr_rel=metric_rtol))
+    g["ok"] = all(g[k] <= v for k, v in g["limits"].items())
+    return g
+
+
+def early_gates(got, ref, got_first, ref_first):
+    """A sharded SGA run against the unsharded ``ref`` over its first steps:
+    the largest relative difference of the first EARLY_STEPS losses, and of
+    the first step's objective and its y and z gradients (L2), each within
+    EARLY_RTOL; the step from which the losses first differ by more, as a
+    diagnostic."""
+    import numpy as np
+
+    def l2_rel(a, b):
+        return float(np.linalg.norm((a - b).ravel()) / np.linalg.norm(b.ravel()))
+
+    loss_rel = np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])
+    over = np.nonzero(loss_rel > EARLY_RTOL)[0]
+    g = dict(losses_rel=float(loss_rel[:EARLY_STEPS].max()),
+             first_loss_rel=abs(got_first["loss"] - ref_first["loss"]) / abs(ref_first["loss"]),
+             grad_y_rel=l2_rel(got_first["gy"], ref_first["gy"]),
+             grad_z_rel=l2_rel(got_first["gz"], ref_first["gz"]))
+    g["ok"] = all(v <= EARLY_RTOL for v in g.values())
+    g.update(limit=EARLY_RTOL, steps=EARLY_STEPS,
+             losses_first_step_over_limit=int(over[0]) if over.size else None)
+    return g
+
+
+def check_dp_inference(model_cpu):
+    """(c) SGA over 2 photos at NCCL world size 1 and with 2 gloo ranks,
+    against the unsharded card run."""
+    import numpy as np
+
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.parallel.mesh import spawn
+
+    x = np.load(PHOTOS)[:2].astype(np.float32) / 255.0
+    _, _, refs, unsharded_ms = unsharded_reference(
+        model_cpu, x, DP_SEED, sga=SGA.replace(iterations=SGA_ITS))
+    ref = refs["sga"]
+    out = dict(unsharded_ms_per_step=unsharded_ms)
+    for name, world, backend in (("nccl_1", 1, "nccl"), ("gloo_2", 2, "gloo")):
+        t = time.perf_counter()
+        ranks = spawn(dp_infer_rank, world, (x, SGA_ITS), device="cuda", backend=backend)
+        got = ranks[0]["res"]
+        y_equal = bool(np.array_equal(got["y"], ref["y"]) and np.array_equal(got["z"], ref["z"]))
+        bpp_rel = float(np.abs(got["est_bpp"] - ref["est_bpp"]).max() / ref["est_bpp"].max())
+        per_rank = [dict(k1_launches=r["k1_launches"],
+                         sga_ms_per_step=r["timing"]["loop_ms"] / SGA_ITS,
+                         collectives=r["collectives"], window=r["window"]) for r in ranks]
+        out[name] = dict(y_equal=y_equal, y_equal_share=float(np.mean(got["y"] == ref["y"])),
+                         bpp_rel=bpp_rel, per_rank=per_rank, seconds=time.perf_counter() - t)
+        out[name]["early"] = early = early_gates(got, ref, ranks[0]["first"], refs["first"])
+        if world == 1:
+            gate = f"y and z equal, est bpp rel diff <= {DP_BPP_RTOL:g}, early gates"
+            ok = y_equal and bpp_rel <= DP_BPP_RTOL and early["ok"]
+        else:
+            out[name]["gates"] = g = run_gates(got, ref, LONG_Y_UNEQUAL, LONG_METRIC_RTOL)
+            gate = "each difference within its limit"
+            ok = g["ok"] and early["ok"]
+        log(f"DP inference {name} ({world} rank(s)) on 2 photos, sga {SGA_ITS} its, injected "
+            f"noise, cuDNN deterministic: {out[name]} ({gate}); unsharded, default "
+            f"algorithms {unsharded_ms:.3f} ms/step")
+        if not ok:
+            raise AssertionError(f"DP inference ({name}) disagrees with the unsharded run")
+        if any(r["k1_launches"] < 3 * SGA_ITS for r in ranks):
+            raise AssertionError(f"K1 did not run on every DP rank ({name})")
+    return out
+
+
+def check_dp_training(workdir):
+    """(d) DP training from the lambda=0.01 checkpoint, at NCCL world size 1
+    and with 2 gloo ranks, against the unsharded card run."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.parallel.mesh import spawn
+    from nic_tpu_torch.train.trainer import TrainConfig, Trainer, is_aux_param
+
+    ref = dp_train_rank(0, "cuda", os.path.join(workdir, "dp_unsharded"))
+    prior = Trainer(TrainConfig(num_filters=CHANNELS, init_from=os.path.join(CKPT_DIR, RUN),
+                                checkpoint_dir=os.path.join(workdir, "dp_kink")), "cpu")
+    prior.restore_or_init()
+    eb = prior.model.entropy_bottleneck
+    with torch.no_grad():
+        logits = eb._logits_cdf(eb.quantiles, stop_gradient=True)
+    kink = torch.abs(logits - eb.quantile_targets) <= QUANTILE_KINK
+
+    def param_diffs(got, want):
+        """Each leaf's largest |dparam| and its mean over all its elements
+        (the quantiles off the quantile loss's kink), in units of its
+        group's lr."""
+        largest, mean = {}, {}
+        for k, w in want.items():
+            lr = 1e-3 if is_aux_param(k) else 1e-4
+            diff = torch.abs(got[k] - w) / lr
+            largest[k] = float(diff.max())
+            mean[k] = float((diff[~kink] if is_aux_param(k) else diff).mean())
+        return largest, mean
+
+    runs = {}
+    for name, world, backend in (("nccl_1", 1, "nccl"), ("gloo_2", 2, "gloo")):
+        t = time.perf_counter()
+        ranks = spawn(dp_train_rank, world, (os.path.join(workdir, f"dp_{name}"),),
+                      device="cuda", backend=backend)
+        r0 = ranks[0]
+        grad_errs = {}
+        for k, want in ref["grads"].items():
+            got = r0["grads"][k]
+            if is_aux_param(k):
+                want, got = want[~kink], got[~kink]
+            norm = float(torch.linalg.vector_norm(want))
+            grad_errs[k] = float(torch.linalg.vector_norm(got - want)) / norm if norm else 0.0
+        loss_err = float(np.max(np.abs(np.asarray(r0["losses"]) - ref["losses"])
+                                / np.abs(ref["losses"])))
+        largest, first = param_diffs(r0["params_first"], ref["params_first"])
+        _, last = param_diffs(r0["params"], ref["params"])
+        worst_g = max(grad_errs, key=grad_errs.get)
+        worst_p = max(first, key=first.get)
+        worst_max = max(largest, key=largest.get)
+        wrote = [r["wrote"] for r in ranks]
+        runs[name] = dict(grad_l2_rel_err_max=grad_errs[worst_g], grad_worst_leaf=worst_g,
+                          loss_rel_err_max=loss_err, param_mean_diff_lr_max=first[worst_p],
+                          param_worst_leaf=worst_p, param_max_diff_lr=largest[worst_max],
+                          param_max_diff_leaf=worst_max,
+                          param_mean_diff_lr_max_after_all_steps=max(last.values()),
+                          wrote=wrote, k1_launches=[r["k1_launches"] for r in ranks],
+                          collectives=[r["collectives"] for r in ranks],
+                          window=[r["window"] for r in ranks],
+                          seconds=time.perf_counter() - t)
+        log(f"DP training {name} ({world} rank(s), batch {8 // world} each) vs unsharded, "
+            f"{DP_TRAIN_STEPS} steps from the lambda=0.01 checkpoint, cuDNN deterministic: "
+            f"{runs[name]} (gradients <= {TRAIN_GRAD_RTOL:g}, losses <= {DP_LOSS_RTOL:g}; "
+            f"after {TRAIN_CMP_STEPS} steps |dparam| <= {TRAIN_PARAM_LRS} lr, and its mean "
+            f"over each leaf <= {TRAIN_PARAM_MEAN_LRS:g} lr)")
+        if not (grad_errs[worst_g] <= TRAIN_GRAD_RTOL and loss_err <= DP_LOSS_RTOL
+                and first[worst_p] <= TRAIN_PARAM_MEAN_LRS
+                and largest[worst_max] <= TRAIN_PARAM_LRS):
+            raise AssertionError(f"DP training ({name}) disagrees with the unsharded run")
+        if not (wrote[0] and all(not w for w in wrote[1:])):
+            raise AssertionError(f"DP training ({name}): writes {wrote}, rank 0's only expected")
+        if any(r["k1_launches"] != 6 * DP_TRAIN_STEPS for r in ranks):
+            raise AssertionError(f"DP training ({name}): K1 did not run 6 times per step")
+    return runs
+
+
+def run_parallel_cli(workdir, photo0):
+    """(e) sga compress --data_parallel and --spatial through the CLI on the
+    card (one card: NCCL at world size 1, in this process), CLI_ITS steps;
+    each stream decodes exactly."""
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, "sga"]
+    out = {}
+    for flag, inputs in (("--data_parallel", PHOTOS), ("--spatial", photo0)):
+        name = flag.strip("-")
+        stream = os.path.join(workdir, f"{name}.ntc")
+        png = os.path.join(workdir, f"{name}.png")
+        gdn_cuda.launches = 0
+        res = cli_main(common + ["compress", RUN, inputs, stream, flag, "--sga_its", str(CLI_ITS),
+                                 "--results_dir", os.path.join(workdir, f"results_{name}")])
+        launches = gdn_cuda.launches
+        dec = cli_main(common + ["decompress", RUN, stream, png])
+        check_exact(f"sga {flag}", dec, png, res["pixels"])
+        name = "spatial_cli" if name == "spatial" else name
+        out[name] = dict(bytes=res["bytes"], k1_launches=launches,
+                         ms_per_step=res["loop_ms"][0] / res["steps"][0],
+                         est_bpp=float(res["results"]["est_bpp"].mean()))
+        log(f"sga compress {flag} (CLI, 1 card): {out[name]}; its stream decodes exactly")
+        if launches < 3 * CLI_ITS:
+            raise AssertionError(f"K1 launched {launches} times on sga {flag}")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -1578,6 +2180,14 @@ def main():
             "mbt2018_bb", os.path.join(CKPT_DIR, BB_RUN), workdir)
         prior_path = run_learned_prior(model_cpu, workdir)
         log(f"training done in {time.perf_counter() - t:.1f} s")
+
+        t = time.perf_counter()
+        k1_multi, k1_multi_max_abs = check_k1_multi()
+        parallel = dict(spatial=check_spatial(model_cpu),
+                        dp_inference=check_dp_inference(model_cpu),
+                        dp_training=check_dp_training(workdir))
+        parallel.update(run_parallel_cli(workdir, os.path.join(photos_dir, "photo_0.png")))
+        log(f"multi-GPU done in {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir)
 
@@ -1586,15 +2196,24 @@ def main():
     kernels = [
         kernel_row(
             "gdn (K1, fused GDN/IGDN)", "nic_tpu_torch/csrc/gdn.cu",
-            "nic_tpu/ops/pallas_gdn.py:23", k1_launches, max(k1_max_abs, k1_train_max_abs),
-            k1_row,
+            "nic_tpu/ops/pallas_gdn.py:23", k1_launches,
+            max(k1_max_abs, k1_train_max_abs, k1_multi_max_abs), k1_row,
             "torch.addmm(beta, x^2, gamma), the cuBLAS product at K1's core",
-            shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32", shapes=k1_timings,
+            shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32",
+            shapes=k1_timings + k1_multi,
             launches_by_path=dict(
                 sga=k1_launches, sga_bf16=k1_bf16_launches,
                 **{m: method_paths[m]["k1_launches"] for m in METHODS},
                 **{b: bb_paths[b]["k1_launches"] for b in BB_SCRIPTS},
-                train=train_path["k1_launches"], train_bb=train_bb_path["k1_launches"]),
+                train=train_path["k1_launches"], train_bb=train_bb_path["k1_launches"],
+                spatial_per_rank=[r["k1_launches"] for r in parallel["spatial"]["per_rank"]],
+                **{f"dp_inference_{n}_per_rank": [
+                    r["k1_launches"] for r in parallel["dp_inference"][n]["per_rank"]]
+                   for n in ("nccl_1", "gloo_2")},
+                dp_train_nccl_1=parallel["dp_training"]["nccl_1"]["k1_launches"],
+                dp_train_gloo_2=parallel["dp_training"]["gloo_2"]["k1_launches"],
+                sga_data_parallel=parallel["data_parallel"]["k1_launches"],
+                sga_spatial=parallel["spatial_cli"]["k1_launches"]),
             max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
@@ -1608,7 +2227,7 @@ def main():
              "bf16 amortized": dict(est_bpp=float(amortized_bf16["est_bpp"].mean()),
                                     psnr=float(amortized_bf16["psnr"].mean())),
              **method_paths, **bb_paths, "train": train_path, "train_bb": train_bb_path,
-             "learned_prior": prior_path}
+             "learned_prior": prior_path, **parallel}
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,8 +25,20 @@ output file is named), and their ``decompress``; a bits-back decode whose
 initial bits do not come back exits non-zero. As in nic_tpu, the bits-back
 scripts ignore ``--verbose``, ``--distortion``, ``--unoise_mean_source``,
 ``--save_opt_record`` and ``--save_reconstruction``, and a method script
-refuses ``train``. Every other flag (the multi-host ones, ``--plot``, the
-``--quant`` variants, ``--data_parallel``, ``--spatial``) exits non-zero with
+refuses ``train``.
+
+Several ranks, one process each (``parallel/mesh.py``): a method's
+``compress --data_parallel`` shards each batch's images over the ranks and
+``--spatial`` each image's rows (``parallel/spatial.py``, mse only); both
+run one rank per visible card under NCCL, or with ``--device cpu``
+``NIC_TPU_TORCH_CPU_RANKS`` gloo ranks (default 1). Rank 0 prints and
+writes the results and the stream. As in nic_tpu, ``--data_parallel`` has
+no effect on ``mbt2018`` and the bits-back scripts. ``train`` with
+``--coordinator_address host:port --num_processes N --process_id i`` is
+rank i of N data-parallel ranks: N counts ranks, one per card (nic_tpu's
+processes own every chip of their host).
+
+Every other flag (``--plot``, the ``--quant`` variants) exits non-zero with
 "not ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
 is given, and raises when there is no card. Streams decode with the same
 code on the same device type: ``decompress`` takes the ``--device`` that
@@ -176,6 +188,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--save_reconstruction", action="store_true",
         help="Save the reconstruction PNG (single-image inputs).",
     )
+    compress_cmd.add_argument(
+        "--data_parallel", action="store_true",
+        help="Shard each batch's images over the ranks (one per visible card; on "
+        "the CPU NIC_TPU_TORCH_CPU_RANKS gloo ranks).",
+    )
+    compress_cmd.add_argument(
+        "--spatial", action="store_true",
+        help="Shard each image's rows over the ranks (halo exchange, "
+        "parallel/spatial.py) instead of batching images; any size is "
+        "edge-padded to the grid and metrics cover the original pixels.",
+    )
 
     decompress_cmd = sub.add_parser("decompress")
     for c in (compress_cmd, decompress_cmd):
@@ -195,9 +218,6 @@ def _check_ported(args, unknown: List[str]) -> None:
     if args.command == "train":
         if args.script not in MODELS:
             sys.exit(f"{args.script} does not support training.")
-        for flag in ("coordinator_address", "num_processes", "process_id"):
-            if getattr(args, flag) is not None:
-                _not_ported(f"multi-host training (--{flag})")
     elif args.script not in PORTED:
         _not_ported(f"{args.script} {args.command}")
     if unknown:
@@ -218,12 +238,12 @@ def _batches(X):
         yield X[i : i + bs]
 
 
-def _load(args):
-    """The device and the run's model: MBT2018, or its bits-back variant
-    for the bits-back scripts."""
+def _load(args, device=None):
+    """The device (``args.device`` unless given) and the run's model:
+    MBT2018, or its bits-back variant for the bits-back scripts."""
     from nic_tpu_torch.checkpoint import load_model
 
-    device = cfg.resolve_device(args.device)
+    device = cfg.resolve_device(device or args.device)
     model = "mbt2018_bb" if args.script in BB_SCRIPTS else "mbt2018"
     _, net = load_model(args.checkpoint_dir, args.runname, args.num_filters, device,
                         model=model)
@@ -309,8 +329,10 @@ def _write_stream(args, model, device, res, image_hw) -> Dict[str, Any]:
 def run_compress(args) -> Dict[str, Any]:
     """``<method> compress``: optimize each batch's latents, save the RD
     results, and write the last batch's bitstream when an output file is
-    named (see ``_write_stream``); ``mbt2018 compress``: see
-    ``_compress_amortized``.
+    named (see ``_write_stream``), on one rank or, with ``--data_parallel``
+    or ``--spatial``, on several (rank 0's result); ``mbt2018 compress``:
+    see ``_compress_amortized``; the bits-back scripts: see
+    ``_compress_bits_back``.
 
     For a method, returns the saved per-image results, the device time of
     each batch's optimization loop (``loop_ms``) and the steps it ran
@@ -318,18 +340,48 @@ def run_compress(args) -> Dict[str, Any]:
     uint8 reconstruction of the transmitted latents (``pixels``) and the
     codec's timing.
     """
-    from nic_tpu_torch.evaluation.results import save_rd_results
-    from nic_tpu_torch.infer.engine import LatentOptimizer
-    from nic_tpu_torch.infer.methods import get_method
-
+    if args.spatial and args.script not in METHOD_SCRIPTS:
+        sys.exit(f"--spatial is only supported for {METHOD_SCRIPTS} (not {args.script}); "
+                 "it shards the iterative-optimization loop.")
     X = load_input(args.input_file)
     lmbda = _resolve_lmbda(args)
     if args.script == "mbt2018":
         return _compress_amortized(args, X)
     if args.script in BB_SCRIPTS:
         return _compress_bits_back(args, X, lmbda)
-    device, model = _load(args)
-    opt = LatentOptimizer(model, device)
+    if args.data_parallel and args.spatial:
+        sys.exit("--data_parallel and --spatial are mutually exclusive.")
+    if args.spatial and args.distortion != "mse":
+        sys.exit("--spatial supports the mse objective only.")
+    if not (args.data_parallel or args.spatial):
+        return _compress_method(args, X, lmbda, cfg.resolve_device(args.device))
+    from nic_tpu_torch.parallel.mesh import spawn, visible_ranks
+
+    ranks = visible_ranks(args.device)
+    if args.data_parallel:
+        print(f"Data-parallel inference over {ranks} device(s).")
+    return spawn(_compress_rank, ranks, (args, X, lmbda), device=args.device)[0]
+
+
+def _compress_rank(rank: int, device, args, X, lmbda: float) -> Optional[Dict[str, Any]]:
+    """One rank of a data-parallel or spatial ``compress``."""
+    import torch.distributed as dist
+
+    return _compress_method(args, X, lmbda, device, dist.group.WORLD)
+
+
+def _compress_method(args, X, lmbda: float, device, group=None) -> Optional[Dict[str, Any]]:
+    """A method's ``compress`` on this rank; rank 0 prints, saves and
+    writes, and returns the results (the other ranks None)."""
+    from nic_tpu_torch.evaluation.results import save_rd_results
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import get_method
+    from nic_tpu_torch.parallel.spatial import SpatialLatentOptimizer
+
+    device, model = _load(args, device)
+    engine = SpatialLatentOptimizer if args.spatial else LatentOptimizer
+    opt = engine(model, device, group)
+    writer = opt.comm.rank == 0
     spec = get_method(args.script).replace(
         iterations=args.sga_its, annealing_rate=args.annealing_rate, t0=args.t0,
         distortion=args.distortion, unoise_mu_source=args.unoise_mean_source,
@@ -349,11 +401,14 @@ def run_compress(args) -> Dict[str, Any]:
             rounded_losses.append(res["rounded_losses"])
         loop_ms.append(opt.last_timing["loop_ms"])
         steps.append(opt.last_timing["steps"])
-        print(
-            f"{args.script}: {steps[-1]} steps on {batch.shape[0]} image(s) "
-            f"in {loop_ms[-1]:.1f} ms ({loop_ms[-1] / max(steps[-1], 1):.3f} "
-            f"ms/step, {device.type})"
-        )
+        if writer:
+            print(
+                f"{args.script}: {steps[-1]} steps on {batch.shape[0]} image(s) "
+                f"in {loop_ms[-1]:.1f} ms ({loop_ms[-1] / max(steps[-1], 1):.3f} "
+                f"ms/step, {device.type})"
+            )
+    if not writer:
+        return None
     if args.save_opt_record and rd_losses:
         # [num_batches, its] for several batches; one batch stays 1-D.
         pack = np.stack if len(rd_losses) > 1 else (lambda ls: ls[0])
@@ -485,13 +540,17 @@ def run_decompress(args) -> Dict[str, Any]:
 def run_train(args, argv: Optional[List[str]] = None):
     """``<model> train``: fit from the run's latest checkpoint (or
     ``--init_from``, or a fresh init) to ``--last_step``. With ``--retries``
-    the command re-runs itself in a supervised child process. Returns the
+    the command re-runs itself in a supervised child process. With
+    ``--coordinator_address`` it is one rank of a data-parallel run (see the
+    module's docstring); each rank prints its step, last loss and parameter
+    sum at the end, which agree when the ranks stayed in step. Returns the
     trainer (its ``losses`` and ``last_timing`` describe the run)."""
     if args.retries > 0 and argv is not None:
         from nic_tpu_torch.train.supervisor import is_supervised_child, supervise
 
         if not is_supervised_child():
             sys.exit(supervise(argv, args.retries))
+    from nic_tpu_torch.parallel import mesh
     from nic_tpu_torch.train.trainer import TrainConfig, Trainer
 
     tc = TrainConfig(
@@ -512,12 +571,33 @@ def run_train(args, argv: Optional[List[str]] = None):
         init_from=args.init_from,
         init_from_partial=args.init_from_partial,
     )
-    trainer = Trainer(tc, device=args.device)
-    pipeline = _make_train_pipeline(args, trainer.device)
+    device, group = args.device, None
+    if args.coordinator_address:
+        if args.num_processes is None or args.process_id is None:
+            sys.exit("--coordinator_address needs --num_processes and --process_id.")
+        if args.batchsize % args.num_processes:
+            sys.exit(f"--batchsize {args.batchsize} must divide by "
+                     f"{args.num_processes} processes.")
+        device = mesh.initialize_multihost(args.coordinator_address, args.num_processes,
+                                           args.process_id, args.device)
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
     try:
-        trainer.fit(pipeline, verbose=True)
+        trainer = Trainer(tc, device=device, group=group)
+        pipeline = _make_train_pipeline(args, trainer)
+        try:
+            trainer.fit(pipeline, verbose=True)
+        finally:
+            pipeline.close()
+        if group is not None:
+            total = sum(float(p.detach().double().sum()) for p in trainer.model.parameters())
+            last = trainer.losses[-1] if trainer.losses else float("nan")
+            print(f"rank {trainer.comm.rank} of {trainer.comm.size}: step {trainer.step}, "
+                  f"loss {last!r}, parameter sum {total!r}")
     finally:
-        pipeline.close()
+        if group is not None:
+            mesh.shutdown()
     return trainer
 
 
@@ -543,23 +623,27 @@ def _device_corpus_fits(train_glob: str) -> bool:
     return len(sizes) == 1 and total <= budget
 
 
-def _make_train_pipeline(args, device):
+def _make_train_pipeline(args, trainer):
     """The corpus on the device with crops sampled there when it fits (or
-    ``--data_pipeline device``), else the host's worker threads."""
+    ``--data_pipeline device``), else the host's worker threads; under data
+    parallelism, this rank's share of each batch (the host pipeline seeded
+    1000 + rank on each rank, as nic_tpu seeds each host)."""
     from nic_tpu_torch.train.data import DeviceDataset, PatchPipeline
 
+    comm, device = trainer.comm, trainer.device
     choice = args.data_pipeline
     if choice == "auto":
         choice = "device" if _device_corpus_fits(args.train_glob) else "host"
     if choice == "device":
         ds = DeviceDataset(args.train_glob, batchsize=args.batchsize,
-                           patchsize=args.patchsize, seed=0, device=device)
+                           patchsize=args.patchsize, seed=0, device=device,
+                           rank=comm.rank, world_size=comm.size)
         print(f"Device-resident dataset: {ds.num_images} images, "
               f"{ds.nbytes / 1e6:.0f} MB on {device}; batches sampled there.")
         return ds
-    return PatchPipeline(args.train_glob, batchsize=args.batchsize,
+    return PatchPipeline(args.train_glob, batchsize=args.batchsize // comm.size,
                          patchsize=args.patchsize, num_threads=args.preprocess_threads,
-                         seed=0)
+                         seed=0 if comm.size == 1 else 1000 + comm.rank)
 
 
 def main(argv: Optional[List[str]] = None):

@@ -16,9 +16,20 @@ then of y, from a ``torch.Generator`` on the device, seeded from ``seed``;
 unoise's "noisy_z" transmit draw comes from a second generator derived from
 the seed. A caller may instead pass ``noise_fn(step, name, shape)``, name
 "y", "z" or "transmit" (step None), which tests use to feed JAX's draws.
+
+Data parallelism (nic_tpu's ``LatentOptimizer(mesh=...)``): given a process
+group, each rank optimizes its slice of the batch. The loss is the global
+batch mean, from each rank's partial sums (the gradient of a rank's latents
+is that of its own partial), and the logged losses and the probes that
+decide the early stop are reduced over the ranks. The noise is drawn at the
+global batch's shape from the generator every rank shares, and each rank
+keeps its images' draws, so the ranks compute what one process would. The
+results are gathered: every rank returns the whole batch's. A batch that
+the ranks do not divide runs whole on every rank, with nic_tpu's warning.
 """
 
 import time
+import warnings
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -33,12 +44,14 @@ from nic_tpu_torch.infer.methods import SGA, MethodSpec, get_method
 from nic_tpu_torch.models.mbt2018 import LN2, MeanScaleHyperprior
 from nic_tpu_torch.ops.quantize import (
     danneal_relax,
+    draw_gumbel,
     draw_uniform,
     round_ste,
     sga_relax,
     uniform_noise,
 )
 from nic_tpu_torch.ops.schedules import annealed_temperature
+from nic_tpu_torch.parallel.mesh import Comm
 
 NoiseFn = Callable[[Optional[int], str, tuple], torch.Tensor]
 # Offset of the unoise transmit generator's seed from the loop's.
@@ -55,11 +68,11 @@ class Latents(NamedTuple):
 # --------------------------------------------------------------------- core
 
 
-def _relax(method: str, v, temperature, generator=None, noise=None):
+def _relax(method: str, v, temperature, noise=None):
     """The method's relaxation of rounding; ``noise`` holds sga's Gumbel or
-    unoise's uniform draws, or None to draw them from ``generator``."""
+    unoise's uniform draws."""
     if method == "sga":
-        return sga_relax(v, temperature, generator=generator, gumbel=noise)
+        return sga_relax(v, temperature, gumbel=noise)
     if method == "danneal":
         return danneal_relax(v, temperature)
     if method == "map":
@@ -67,40 +80,41 @@ def _relax(method: str, v, temperature, generator=None, noise=None):
     if method == "ste":
         return round_ste(v)
     if method == "unoise":
-        return uniform_noise(v, generator=generator, noise=noise)
+        return uniform_noise(v, noise=noise)
     raise ValueError(f"Unknown relaxation {method!r}")
 
 
 def _forward(model: MeanScaleHyperprior, latents: Latents, x, temperature,
-             method: str, noise: Optional[Latents] = None, generator=None):
+             method: str, noise: Optional[Latents] = None):
     """Relax -> likelihoods -> reconstruction. ``noise`` holds the draws of
-    y and z, or None to draw them from ``generator``."""
+    y and z (sga, unoise)."""
     noise = noise or Latents(None, None)
-    z_tilde = _relax(method, latents.z, temperature, generator, noise.z)
+    z_tilde = _relax(method, latents.z, temperature, noise.z)
     z_lik = model.z_likelihood(z_tilde)
     y_hw = (latents.y.shape[1], latents.y.shape[2])
     mu, sigma = model.hyper_synthesize(z_tilde, y_hw)
-    y_tilde = _relax(method, latents.y, temperature, generator, noise.y)
+    y_tilde = _relax(method, latents.y, temperature, noise.y)
     y_lik = model.y_likelihood(y_tilde, mu, sigma)
     x_tilde = model.synthesize(y_tilde, (x.shape[1], x.shape[2]))
     return y_tilde, z_tilde, y_lik, z_lik, mu, sigma, x_tilde
 
 
 def _rd_loss(model, latents: Latents, x, lmbda: float, temperature,
-             method: str, noise: Optional[Latents] = None, generator=None,
-             distortion: str = "mse"):
+             method: str, noise: Optional[Latents] = None,
+             distortion: str = "mse", batch: Optional[int] = None):
     """lambda * distortion + mean bpp; (loss, dict(mse, bpp)). The
-    distortion is 255^2 * MSE, or 1 - MS-SSIM with ``distortion="msssim"``."""
-    _, _, y_lik, z_lik, _, _, x_tilde = _forward(
-        model, latents, x, temperature, method, noise, generator
-    )
+    distortion is 255^2 * MSE, or 1 - MS-SSIM with ``distortion="msssim"``.
+    The means are over ``batch`` images (default: x's); a data-parallel
+    rank passes the global batch and gets its share of the global loss."""
+    _, _, y_lik, z_lik, _, _, x_tilde = _forward(model, latents, x, temperature, method, noise)
+    batch = batch or x.shape[0]
     num_pixels = x.shape[1] * x.shape[2]
     y_bpp = -torch.sum(torch.log(y_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
     z_bpp = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
-    train_bpp = torch.mean(y_bpp + z_bpp)
-    mse = torch.mean(torch.square(x - x_tilde)) * (255.0 ** 2)
+    train_bpp = torch.sum(y_bpp + z_bpp) / batch
+    mse = torch.sum(torch.square(x - x_tilde)) / (batch * x[0].numel()) * (255.0 ** 2)
     if distortion == "msssim":
-        dist = 1.0 - torch.mean(msssim_fn(x_tilde, x, 1.0))
+        dist = torch.sum(1.0 - msssim_fn(x_tilde, x, 1.0)) / batch
     else:
         dist = mse
     loss = lmbda * dist + train_bpp if lmbda > 0 else train_bpp
@@ -134,12 +148,12 @@ def _quantize_transmitted(model, latents: Latents, method: str,
 
 @torch.no_grad()
 def _probe_objective(model, latents: Latents, x, lmbda: float, method: str,
-                     distortion: str = "mse"):
+                     distortion: str = "mse", batch: Optional[int] = None):
     """The discrete objective after quantization, with the identity
     relaxation on the quantized latents: the early stop's and --verbose's
-    probe."""
+    probe (a rank's share of it with a global ``batch``)."""
     q = _quantize_transmitted(model, latents, method)
-    loss, _ = _rd_loss(model, q, x, lmbda, 1.0, "map", distortion=distortion)
+    loss, _ = _rd_loss(model, q, x, lmbda, 1.0, "map", distortion=distortion, batch=batch)
     return loss
 
 
@@ -218,12 +232,15 @@ class LatentOptimizer:
 
     The model is moved to ``device`` (the card unless the caller asks for
     the CPU), put in eval mode and frozen: only the latents are optimized.
+    With a process ``group`` of several ranks, ``optimize`` shards the batch
+    over them (see the module's docstring); every rank makes the same call.
     """
 
-    def __init__(self, model: MeanScaleHyperprior, device="cuda"):
+    def __init__(self, model: MeanScaleHyperprior, device="cuda", group=None):
         config.set_fp32_precision()
         self.device = config.resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self.comm = Comm(group)
         # Device time of the last optimize() loop: {"steps", "loop_ms"}.
         self.last_timing: Dict[str, float] = {}
 
@@ -232,6 +249,19 @@ class LatentOptimizer:
 
     def amortized_init(self, x):
         return _amortized_init(self.model, self._tensor(x))
+
+    def _batch_comm(self, batch: int) -> Comm:
+        """The ranks this batch is sharded over: all of them, or none (a
+        single ``Comm``) when they do not divide it."""
+        if batch % self.comm.size == 0:
+            return self.comm
+        warnings.warn(
+            f"batch of {batch} does not divide the {self.comm.size}-device data "
+            "mesh; this batch runs replicated (no data parallelism). Pick eval "
+            "batch sizes divisible by the mesh to keep all chips busy.",
+            stacklevel=3,
+        )
+        return Comm()
 
     def optimize(self, x, lmbda: float, method: MethodSpec = SGA, seed: int = 0,
                  noise_fn: Optional[NoiseFn] = None,
@@ -252,6 +282,10 @@ class LatentOptimizer:
                 "msssim optimization objective needs images >= 176px on the "
                 f"short side (5 scales x 11-tap window); got {tuple(x.shape[1:3])}."
             )
+        batch = x.shape[0]
+        comm = self._batch_comm(batch)
+        lo, hi = comm.shard(batch)
+        x = x[lo:hi]
         generator = torch.Generator(device=self.device).manual_seed(seed)
         y0, z0 = _amortized_init(self.model, x)
         y = y0.clone().requires_grad_(True)
@@ -263,12 +297,19 @@ class LatentOptimizer:
         # Early stop: the latents of the last improving probe.
         saved, prev_obj, stopped, steps = None, float("inf"), False, its
 
-        # sga draws a Gumbel pair per latent, unoise one uniform draw.
-        injected = noise_fn is not None and method.name in ("sga", "unoise")
+        # sga draws a Gumbel pair per latent, unoise one uniform draw; each
+        # at the global batch's shape, this rank's images kept.
+        draw_fn = {"sga": draw_gumbel, "unoise": draw_uniform}.get(method.name)
         pair = (2,) if method.name == "sga" else ()
 
         def draw(it, name, v):
-            return noise_fn(it, name, tuple(v.shape) + pair).to(self.device)
+            shape = (batch,) + tuple(v.shape[1:]) + pair
+            if noise_fn is not None:
+                return noise_fn(it, name, shape)[lo:hi].to(self.device)
+            return draw_fn(shape, generator, self.device)[lo:hi]
+
+        def reduced(loss):
+            return comm.all_reduce(loss.detach().clone())
 
         stop = device_timer(self.device)
         for it in range(its):
@@ -276,25 +317,30 @@ class LatentOptimizer:
                 it, r=method.annealing_rate, ub=method.temperature_ub,
                 scheme=method.annealing_scheme, t0=method.t0,
             )
-            noise = Latents(y=draw(it, "y", y), z=draw(it, "z", z)) if injected else None
+            noise = None
+            if draw_fn is not None:
+                noise_z = draw(it, "z", z)
+                noise = Latents(y=draw(it, "y", y), z=noise_z)
             loss, _ = _rd_loss(
                 self.model, Latents(y, z), x, lmbda, temperature, method.name,
-                noise, generator, method.distortion,
+                noise, method.distortion, batch,
             )
             grads = torch.autograd.grad(loss, (y, z))
             state = adam_update((y, z), grads, state, method.lr)
-            loss = loss.detach()
+            loss = reduced(loss)
             if not method.early_stop:
                 losses[it] = loss
                 if probe_every > 0 and it % probe_every == 0:
-                    probes[it] = _probe_objective(self.model, Latents(y, z), x, lmbda,
-                                                  method.name, method.distortion)
+                    probes[it] = reduced(_probe_objective(
+                        self.model, Latents(y, z), x, lmbda, method.name,
+                        method.distortion, batch))
                 continue
             if it % method.probe_interval and it != its - 1:
                 continue
             # STE compares the relaxed objective of this step itself.
-            obj = loss if method.name == "ste" else _probe_objective(
-                self.model, Latents(y, z), x, lmbda, method.name, method.distortion)
+            obj = loss if method.name == "ste" else reduced(_probe_objective(
+                self.model, Latents(y, z), x, lmbda, method.name, method.distortion,
+                batch))
             obj = float(obj)  # the host decides: one sync per probe
             if obj <= prev_obj:
                 saved = Latents(y.detach().clone(), z.detach().clone())
@@ -307,21 +353,22 @@ class LatentOptimizer:
         final = saved if stopped else Latents(y.detach(), z.detach())
         transmit_noise = None
         if method.name == "unoise" and method.unoise_mu_source == "noisy_z":
+            shape = (batch,) + tuple(z.shape[1:])
             if noise_fn is not None:
-                transmit_noise = noise_fn(None, "transmit", tuple(z.shape)).to(self.device)
+                transmit_noise = noise_fn(None, "transmit", shape)[lo:hi].to(self.device)
             else:
                 transmit = torch.Generator(device=self.device).manual_seed(
                     seed + TRANSMIT_SEED_OFFSET)
-                transmit_noise = draw_uniform(z.shape, transmit, self.device)
+                transmit_noise = draw_uniform(shape, transmit, self.device)[lo:hi]
         transmitted = _quantize_transmitted(
             self.model, final, method.name, method.unoise_mu_source, transmit_noise)
         compute_msssim = min(x.shape[1], x.shape[2]) >= MSSSIM_MIN_SIDE
         metrics = _eval_transmitted(self.model, x, transmitted, compute_msssim)
+        metrics.update(y=transmitted.y, z=transmitted.z)
+        metrics = {k: comm.all_gather_cat(v, 0) for k, v in metrics.items()}
         if method.early_stop:
             losses = probes = torch.zeros(0)
         return dict(
-            y=transmitted.y.cpu().numpy(),
-            z=transmitted.z.cpu().numpy(),
             losses=losses.cpu().numpy(),
             rounded_losses=probes.cpu().numpy(),
             **to_numpy(metrics),

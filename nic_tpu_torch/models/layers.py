@@ -15,7 +15,7 @@ Padding reproduces XLA's "SAME":
 """
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -149,11 +149,17 @@ class GDN(nn.Module):
         self.gamma = nn.Parameter(
             torch.sqrt(0.1 * torch.eye(channels) + self.pedestal)
         )
+        # Data-parallel training sets it (Comm.average_grad): the effective
+        # parameters' gradient is then the global batch's before the bounds'
+        # gate reads its sign.
+        self.average_grad: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def effective_params(self):
         """(beta, gamma) as the normalization uses them."""
         beta = torch.square(lower_bound(self.beta, self.beta_bound)) - self.pedestal
         gamma = torch.square(lower_bound(self.gamma, self.gamma_bound)) - self.pedestal
+        if self.average_grad is not None:
+            beta, gamma = self.average_grad(beta), self.average_grad(gamma)
         return beta, gamma
 
     def forward(self, x):

@@ -112,11 +112,15 @@ class DeviceDataset:
     Needs uniformly sized images (use ``PatchPipeline`` for a mixed corpus).
     ``sample(k)`` returns a (k, B, P, P, 3) uint8 tensor on the device: k
     steps' batches, each image and crop drawn uniformly from the dataset's
-    own generator, seeded with ``seed``.
+    own generator, seeded with ``seed``. Under data parallelism every rank
+    holds the whole corpus and draws the global batch alike, and keeps the
+    ``rank``-th of ``world_size`` equal slices: B = batchsize / world_size.
     """
 
     def __init__(self, train_glob: str, batchsize: int = 8, patchsize: int = 256,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", rank: int = 0, world_size: int = 1):
+        if batchsize % world_size:
+            raise ValueError(f"batch size {batchsize} does not split over {world_size} ranks")
         files = sorted(globlib.glob(train_glob))
         if not files:
             raise RuntimeError(f"No training images found with glob '{train_glob}'.")
@@ -138,6 +142,8 @@ class DeviceDataset:
         self.nbytes = stack.nbytes
         self.batchsize = batchsize
         self.patchsize = patchsize
+        local = batchsize // world_size
+        self._slice = slice(rank * local, (rank + 1) * local)
         self.device = torch.device(device)
         self._images = torch.from_numpy(stack).to(self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -148,9 +154,9 @@ class DeviceDataset:
         n, h, w, _ = self._images.shape
         size = (k, self.batchsize)
         opts = dict(generator=self._generator, device=self.device)
-        idx = torch.randint(0, n, size, **opts)
-        top = torch.randint(0, h - self.patchsize + 1, size, **opts)
-        left = torch.randint(0, w - self.patchsize + 1, size, **opts)
+        idx = torch.randint(0, n, size, **opts)[:, self._slice]
+        top = torch.randint(0, h - self.patchsize + 1, size, **opts)[:, self._slice]
+        left = torch.randint(0, w - self.patchsize + 1, size, **opts)[:, self._slice]
         rows = (top[..., None] + self._offsets)[..., :, None]
         cols = (left[..., None] + self._offsets)[..., None, :]
         return self._images[idx[..., None, None], rows, cols]

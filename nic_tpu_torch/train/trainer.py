@@ -20,6 +20,23 @@ all or, with ``init_from_partial``, those whose key and shape match); else
 a fresh init. Every GDN and IGDN runs K1 on the card (``ops/gdn_cuda.py``);
 their backward, ``gdn_backward``, returns dx, dgamma and dbeta from torch
 matmuls, as nic_tpu's is XLA.
+
+Data parallelism (nic_tpu's data mesh): given a process group, each rank
+trains on its slice of the global batch. ``num_devices`` (default: the
+group's ranks) shrinks to a divisor of the batch size, with nic_tpu's
+warning, and the ranks beyond it idle. After the backward the gradients are
+averaged over the ranks by one flat ``all_reduce`` (not
+``DistributedDataParallel``: the step's gradients are complete only after
+the one backward, and a single reduction leaves the clip and Adam as they
+are), so every rank takes the same step. GDN's beta and gamma are averaged
+earlier, inside the backward (``GDN.average_grad``): their bounds pass a
+gradient by its sign, and nic_tpu's gate reads the global batch's gradient,
+where a rank's part may have the other sign (parameters at their bound).
+The noise is drawn at the global batch's shape from the generator every
+rank shares and each rank keeps its images' draws. The logged metrics, the NaN guard, the divergence threshold
+and the clip act on reduced values; rank 0 alone writes checkpoints,
+``metrics.jsonl`` and the run's metadata; a resume checks that every rank
+restored the same step.
 """
 
 import datetime
@@ -30,6 +47,7 @@ import shutil
 import signal
 import threading
 import time
+import warnings
 from dataclasses import asdict, dataclass
 from typing import Dict, Iterable, List, Optional
 
@@ -39,8 +57,11 @@ import torch
 from nic_tpu_torch import checkpoint as ckpt_lib
 from nic_tpu_torch.config import resolve_device, set_fp32_precision
 from nic_tpu_torch.infer.engine import device_timer
+from nic_tpu_torch.models.layers import GDN
 from nic_tpu_torch.models.mbt2018 import MeanScaleHyperprior, rd_loss
 from nic_tpu_torch.models.mbt2018_bb import BitsBackHyperprior, bb_rd_loss
+from nic_tpu_torch.ops.quantize import draw_uniform
+from nic_tpu_torch.parallel.mesh import Comm
 from nic_tpu_torch.train.data import DeviceDataset
 from nic_tpu_torch.train.summaries import SummaryWriter, ThroughputMeter
 from nic_tpu_torch.utils import get_runname
@@ -76,7 +97,8 @@ class TrainConfig:
     save_summary_secs: int = 60
     log_every: int = 100
     logdir: str = ""
-    # Devices of a data-parallel run; more than one is not ported yet.
+    # Ranks of a data-parallel run (default: all of the trainer's group),
+    # shrunk to a divisor of the batch size.
     num_devices: Optional[int] = None
     # Another run's checkpoint directory whose parameters start this run
     # (fresh optimizer, step 0); ignored once this run has a checkpoint.
@@ -133,19 +155,48 @@ def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> None
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def data_parallel_ranks(cfg: TrainConfig, world: int) -> int:
+    """nic_tpu's mesh rule: the ranks asked for (default: all), at most the
+    batch size and a divisor of it; warns when that idles some."""
+    requested = cfg.num_devices or world
+    n = min(requested, cfg.batchsize)
+    while cfg.batchsize % n:
+        n -= 1
+    if n < requested:
+        warnings.warn(
+            f"data mesh shrunk from {requested} to {n} device(s) so the batch size "
+            f"{cfg.batchsize} divides evenly; {requested - n} device(s) will idle. "
+            f"Pick a batchsize divisible by {requested} to use the full mesh.",
+            stacklevel=3,
+        )
+    if n > world:
+        raise ValueError(
+            f"num_devices={n} needs a process group of {n} ranks, one process each; "
+            f"this trainer has {world} (parallel.mesh.spawn, or train's "
+            "--coordinator_address/--num_processes/--process_id)")
+    return n
+
+
 class Trainer:
     """Owns the model, the optimizer, the noise generator, the checkpoints
-    and the fit loop, on ``device``: the card unless "cpu" is asked for."""
+    and the fit loop, on ``device``: the card unless "cpu" is asked for.
+    With a process ``group``, one of its data-parallel ranks (see the
+    module's docstring); every rank of the group constructs its trainer."""
 
-    def __init__(self, cfg: TrainConfig, device="cuda"):
+    def __init__(self, cfg: TrainConfig, device="cuda", group=None):
         if cfg.distortion == "msssim" and cfg.patchsize < 176:
             raise ValueError(
                 "MS-SSIM training needs patchsize >= 176 (5 scales x 11-tap "
                 f"window); got {cfg.patchsize}"
             )
-        if cfg.num_devices is not None and cfg.num_devices > 1:
-            raise SystemExit("nic_tpu_torch: data-parallel training (num_devices > 1) "
-                             "is not ported yet (ROADMAP.md)")
+        world = Comm(group)
+        n = data_parallel_ranks(cfg, world.size)
+        if n < world.size:
+            # The first n ranks train; the others idle (their fit() returns).
+            group = torch.distributed.new_group(list(range(n))) if n > 1 else None
+        self.active = world.rank < n
+        self.comm = Comm(group if self.active else None)
+        self.is_writer = world.rank == 0
         if cfg.model == "mbt2018":
             self._model_cls, self._loss_fn, self._dual = MeanScaleHyperprior, rd_loss, True
         elif cfg.model == "mbt2018_bb":
@@ -174,6 +225,13 @@ class Trainer:
             if reset is not None:
                 reset(generator=init_generator)
         self.model = model.to(self.device)
+        # Gradients averaged inside the backward (see the module's docstring).
+        self._averaged = set()
+        if self.comm.group is not None:
+            for module in model.modules():
+                if isinstance(module, GDN):
+                    module.average_grad = self.comm.average_grad
+                    self._averaged |= {id(module.beta), id(module.gamma)}
         self.optimizer = make_optimizer(self.model, self.cfg.main_lr, self.cfg.aux_lr,
                                         self._dual)
         self.step = 0
@@ -227,6 +285,16 @@ class Trainer:
             print(f"Resuming params (fresh optimizer) from {npz}")
             self.load_params(flat)
             self.step = step
+        if self.comm.group is not None:
+            # Only rank 0 saves: a rank that does not see its directory
+            # would start afresh while the others resume.
+            steps = [int(t) for t in self.comm.all_gather(
+                torch.tensor([self.step], device=self.device))]
+            if min(steps) != max(steps):
+                raise RuntimeError(
+                    f"Checkpoint restore diverged across ranks (restored steps per rank: "
+                    f"{steps}). All ranks must see the same checkpoint directory "
+                    "(shared filesystem) to resume a multi-rank run.")
         return self.step
 
     def _warm_start(self) -> None:
@@ -282,20 +350,56 @@ class Trainer:
             loss = loss + aux
         return loss, metrics
 
-    def train_step(self, batch, noise=None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a [B, P, P, 3] batch (uint8, scaled to [0, 1]
-        here, or float). ``noise`` is the forward's draws: (z's, y's) uniform
-        noise for MBT2018, (eps, y's) for the bits-back model; drawn from
-        the trainer's generator when None. Returns the step's metrics as
-        device scalars (``loss`` is the RD loss, before the quantile loss)."""
+    def draw_noise(self, x):
+        """The forward's draws for this rank's batch x from the generator:
+        (z's, y's) uniform noise for MBT2018, (eps, y's) for the bits-back
+        model, in the model's own order, drawn at the global batch's shape;
+        this rank's images' draws."""
+        b, h, w = x.shape[:3]
+        lo, hi = self.comm.shard(b * self.comm.size)
+        rows, cols = -(-h // 16), -(-w // 16)
+        nf = self.cfg.num_filters
+        z_shape = (b * self.comm.size, -(-rows // 4), -(-cols // 4), nf)
+        y_shape = (b * self.comm.size, rows, cols, nf)
+        if self.cfg.model == "mbt2018":
+            first = draw_uniform(z_shape, self.generator, self.device)
+        else:
+            first = torch.randn(z_shape, generator=self.generator, device=self.device)
+        return first[lo:hi], draw_uniform(y_shape, self.generator, self.device)[lo:hi]
+
+    def backward(self, batch, noise=None) -> Dict[str, torch.Tensor]:
+        """The forward and backward of a step on this rank's [B, P, P, 3]
+        batch (uint8, scaled to [0, 1] here, or float), and the gradients'
+        average over the ranks; leaves them in the parameters' ``grad``.
+        ``noise`` is the forward's draws for this batch (see ``draw_noise``,
+        which gives them when None). Returns the step's metrics as device
+        scalars, this rank's (``loss`` is the RD loss, before the quantile
+        loss)."""
         x = torch.as_tensor(batch).to(self.device, non_blocking=True)
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
-        if noise is not None:
-            noise = tuple(n.to(self.device) for n in noise)
+        if noise is None:
+            noise = self.draw_noise(x)
+        noise = tuple(n.to(self.device) for n in noise)
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(x, noise)
         loss.backward()
+        if self.comm.group is not None:
+            # The same graph on every rank: the same parameters have gradients.
+            params = [p for p in self.model.parameters()
+                      if p.grad is not None and id(p) not in self._averaged]
+            flat = self.comm.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]))
+            flat /= self.comm.size
+            offset = 0
+            for p in params:
+                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+        return metrics
+
+    def train_step(self, batch, noise=None) -> Dict[str, torch.Tensor]:
+        """One optimizer step: ``backward``, the clip, Adam. Returns the
+        step's metrics (see ``backward``)."""
+        metrics = self.backward(batch, noise)
         if self.cfg.grad_clip > 0:
             clip_by_global_norm(self.model.parameters(), self.cfg.grad_clip)
         self.optimizer.step()
@@ -318,15 +422,25 @@ class Trainer:
             metrics = self.train_step(batch, noise)
         return metrics
 
+    def reduced(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of this rank's values (the global batch's
+        mean of a per-batch mean)."""
+        if self.comm.group is None:
+            return values
+        return self.comm.all_reduce(values.clone()) / self.comm.size
+
     def _flush_losses(self) -> None:
         if self._pending_losses:
-            self.losses.extend(torch.stack(self._pending_losses).tolist())
+            self.losses.extend(self.reduced(torch.stack(self._pending_losses)).tolist())
             self._pending_losses = []
 
     # -------------------------------------------------------------------- fit
 
     def save(self) -> None:
-        """The full state and the npz at this step; earlier ones are removed."""
+        """The full state and the npz at this step; earlier ones are removed.
+        Rank 0's job: on the other ranks a no-op."""
+        if not self.is_writer:
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         ckpt_lib.save_checkpoint(self.save_dir, self.step, self.state_dict())
         prev = ckpt_lib.latest_npz(self.save_dir)
@@ -371,13 +485,17 @@ class Trainer:
         from the trainer's current one. ``data`` is a ``DeviceDataset`` or an
         iterator of [B, P, P, 3] batches. Returns the step reached."""
         cfg = self.cfg
+        if not self.active:
+            return self.step
         if resume:
             self.restore_or_init()
-        self._write_metadata()
-        writer = SummaryWriter(
-            os.path.join(self.save_dir, "metrics.jsonl"),
-            logdir=os.path.join(cfg.logdir, cfg.resolved_runname()) if cfg.logdir else None,
-        )
+        writer = None
+        if self.is_writer:
+            self._write_metadata()
+            writer = SummaryWriter(
+                os.path.join(self.save_dir, "metrics.jsonl"),
+                logdir=os.path.join(cfg.logdir, cfg.resolved_runname()) if cfg.logdir else None,
+            )
         meter = ThroughputMeter()
         last_ckpt = time.time()
         last_log = 0.0
@@ -410,7 +528,9 @@ class Trainer:
                 metrics = self.run_steps(batches)
                 meter.update(cfg.batchsize * this, steps=this)
                 if self.step % cfg.log_every == 0 or self.step == cfg.last_step:
-                    metrics = {name: float(v) for name, v in metrics.items()}
+                    names = list(metrics)
+                    values = self.reduced(torch.stack([metrics[n] for n in names])).tolist()
+                    metrics = dict(zip(names, values))
                     self._flush_losses()
                     loss = metrics["loss"]
                     if not (loss == loss and abs(loss) != float("inf")):
@@ -421,6 +541,8 @@ class Trainer:
                             f"{cfg.divergence_threshold:g} at step {self.step}")
                     now = time.time()
                     rates = meter.rates()
+                    if not self.is_writer:
+                        continue
                     if verbose and now - last_log >= 1.0:
                         last_log = now
                         print(f"step={self.step} loss={loss:.4f} bpp={metrics['bpp']:.4f} "

@@ -1,9 +1,10 @@
 """The port's command line, on the CPU: ``sga``, ``map``, ``ste`` and
 ``danneal compress --device cpu`` against nic_tpu's CLI on the same
-checkpoint and images, the methods' streams, ``train`` (a run served by
-``compress`` -> ``decompress``, a resume, the bits-back model, ``--retries``)
-and ``learned_prior``, the refusals of what is not ported, the device
-policy, and the port's independence from JAX.
+checkpoint and images, the methods' streams, ``--data_parallel`` and
+``--spatial`` over gloo ranks and their refusals, ``train`` (a run served by
+``compress`` -> ``decompress``, a resume, the bits-back model, ``--retries``,
+the multi-host flags' checks) and ``learned_prior``, the refusals of what is
+not ported, the device policy, and the port's independence from JAX.
 
 Tolerance: float32 values 1e-5 relative, elementwise with an absolute floor
 of the same fraction of the largest reference magnitude.
@@ -182,16 +183,10 @@ def test_default_device_raises_without_a_card(workdir, monkeypatch):
 
 @pytest.mark.parametrize("extra,script,before", [
     (("--quant", "int8"), "mbt2018", ()),
-    (("--data_parallel",), "map", ()),
-    (("--data_parallel",), "bb_sga", ()),
     (("out.ntc", "--quant", "int8"), "sga", ()),
-    (("--data_parallel",), "sga", ()),
-    (("--spatial",), "sga", ()),
-    (("--spatial",), "unoise", ()),
     (("--quant", "int8"), "sga", ()),
     (("--quant", "int8"), "danneal", ()),
     (("--quant", "int8"), "bb_no_sga", ("--verbose",)),
-    (("--spatial",), "bb_plain", ()),
 ])
 def test_unported_parts_exit_nonzero(workdir, extra, script, before):
     argv = ["--device", "cpu", *before] + _argv(workdir, workdir / "res_x", *extra,
@@ -202,14 +197,79 @@ def test_unported_parts_exit_nonzero(workdir, extra, script, before):
 
 
 @pytest.mark.parametrize("argv", [
-    ["mbt2018", "train", "--train_glob", "x/*.png", "--num_processes", "2"],
-    ["mbt2018_bb", "train", "--train_glob", "x/*.png", "--coordinator_address", "h:1"],
     ["learned_prior", "--num_channels", "4", "--data_path", "x.npy", "--plot"],
 ])
 def test_unported_commands_exit_nonzero(argv):
     with pytest.raises(SystemExit) as info:
         main(argv)
     assert "not ported yet (ROADMAP.md)" in str(info.value.code)
+
+
+@pytest.mark.parametrize("extra,script,message", [
+    (("--data_parallel", "--spatial"), "sga", "mutually exclusive"),
+    (("--data_parallel", "--spatial"), "map", "mutually exclusive"),
+    (("--spatial", "--distortion", "msssim"), "sga", "mse objective only"),
+    (("--spatial", "--distortion", "msssim"), "unoise", "mse objective only"),
+    (("--spatial",), "bb_plain", "only supported for"),
+    (("--spatial",), "mbt2018", "only supported for"),
+])
+def test_parallel_flags_are_refused_as_nic_tpu(workdir, extra, script, message):
+    """--data_parallel with --spatial, --spatial with MS-SSIM or on a script
+    that runs no iterative loop: nic_tpu's messages."""
+    codes = []
+    for cli, before in ((main, ["--device", "cpu"]), (jax_main, [])):
+        with pytest.raises(SystemExit) as info:
+            cli(before + _argv(workdir, workdir / "res_refused", *extra, script=script))
+        codes.append(str(info.value.code))
+    assert message in codes[0] and codes[0] == codes[1]
+
+
+def test_data_parallel_has_no_effect_on_mbt2018(workdir):
+    ref = main(["--device", "cpu"] + _argv(workdir, workdir / "res_amortized",
+                                           script="mbt2018"))
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / "res_amortized_dp",
+                                           "--data_parallel", script="mbt2018"))
+    for k in FIELDS:
+        np.testing.assert_array_equal(out["results"][k], ref["results"][k])
+
+
+def test_data_parallel_compress_matches_one_rank(workdir, capsys, monkeypatch):
+    """sga --data_parallel over 2 gloo ranks: the 2 crops' results are the
+    single rank's, and rank 0 alone prints and saves."""
+    ref = main(["--device", "cpu"] + _argv(workdir, workdir / "res_one_rank", its="3"))
+    monkeypatch.setenv("NIC_TPU_TORCH_CPU_RANKS", "2")
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / "res_dp", "--data_parallel",
+                                           its="3"))
+    assert "Data-parallel inference over 2 device(s)." in capsys.readouterr().out
+    for k in FIELDS:
+        assert_rel(out["results"][k], ref["results"][k])
+    assert os.listdir(workdir / "res_dp") == [rd_results_filename("sga", RUN, "crops.npy", 0.01)]
+
+
+@pytest.mark.parametrize("script", ["sga", "danneal"])
+def test_spatial_stream_decodes_exactly(workdir, monkeypatch, script):
+    """--spatial over 2 gloo ranks writes the last image's stream, which
+    the unsharded decoder reads back to the compress side's pixels."""
+    monkeypatch.setenv("NIC_TPU_TORCH_CPU_RANKS", "2")
+    stream, png = workdir / f"{script}_spatial.ntc", workdir / f"{script}_spatial.png"
+    out = main(["--device", "cpu"] + _argv(workdir, workdir / f"res_{script}_spatial",
+                                           str(stream), "--spatial", script=script, its="3"))
+    assert out["bytes"] == stream.stat().st_size and out["steps"] == [3]
+    dec = main(["--device", "cpu", "--num_filters", "8", "--checkpoint_dir",
+                str(workdir / "ckpt"), script, "decompress", RUN, str(stream), str(png)])
+    np.testing.assert_array_equal(np.round(dec["x_hat"] * 255.0).astype(np.uint8),
+                                  out["pixels"])
+
+
+@pytest.mark.parametrize("extra,message", [
+    (("--coordinator_address", "localhost:1"), "needs --num_processes and --process_id"),
+    (("--coordinator_address", "localhost:1", "--num_processes", "3", "--process_id", "0"),
+     "--batchsize 2 must divide by 3 processes."),
+])
+def test_multi_host_flags_are_checked(train_corpus, tmp_path, extra, message):
+    with pytest.raises(SystemExit) as info:
+        main(_train_argv(tmp_path / "ckpt", train_corpus, "mbt2018", 2, *extra))
+    assert message in str(info.value.code)
 
 
 @pytest.mark.parametrize("script", ["sga", "bb_plain"])
@@ -313,6 +373,8 @@ def test_port_imports_neither_jax_nor_nic_tpu():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "nic_tpu_torch.infer.engine" in report["modules"]
     assert "nic_tpu_torch.cli.main" in report["modules"]
+    assert "nic_tpu_torch.parallel.mesh" in report["modules"]
+    assert "nic_tpu_torch.parallel.spatial" in report["modules"]
     assert report["bad"] == []
 
 

@@ -238,7 +238,8 @@ def test_nan_and_divergence_guards_raise(tmp_path):
 def test_msssim_needs_large_patches_and_multi_device_is_refused(tmp_path):
     with pytest.raises(ValueError, match="patchsize"):
         Trainer(_cfg(tmp_path, distortion="msssim"), device="cpu")
-    with pytest.raises(SystemExit, match="not ported yet"):
+    # More ranks than the trainer's process group has (none: one rank).
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
         Trainer(_cfg(tmp_path, num_devices=2), device="cpu")
 
 
