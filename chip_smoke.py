@@ -49,7 +49,9 @@ Phases, each printed with its elapsed seconds:
                the lambda=0.01 bits-back checkpoint, K1's launches counted from
                zero on each path: every stream decodes exactly with its initial
                bits back; bb_plain's PSNR against nic_tpu's, its est. net bpp
-               (mean of 16 evaluation samples) and its stream's actual bpp (mean
+               (mean of 200 evaluation samples; and, fed one fixed evaluation
+               draw, the card against the port's CPU path on the full photos)
+               and its stream's actual bpp (mean
                of 32 seeds: a single stream's size is a draw, see
                BB_ACTUAL_MEAN_RTOL) against nic_tpu's; bb_sga's rounded RD
                objective and bb_no_sga's est. net bpp below bb_plain's; and the
@@ -97,6 +99,21 @@ Phases, each printed with its elapsed seconds:
                with cuDNN's deterministic algorithms, and hold the sharded
                runs tightly over their first steps (EARLY_STEPS); the
                timings use its default algorithms.
+ 14. evaluation - the RD tools in-process on the lambda=0.01 runs, K1's
+               launches counted from zero on each: (a) ``rd_curve --lmbda 0.01
+               --methods amortized,sga`` (bf16, SGA 2000 steps) against
+               nic_tpu's rows in results/photos_synth3, its CSVs in the
+               reference's format; (b) ``rd_curve --model mbt2018_bb`` (bb_plain,
+               bb_sga with 500 RD steps) equal bit for bit to
+               BBLatentOptimizer.optimize with the same spec and seed, both with
+               deterministic cuDNN, and bb_sga's RD objective below bb_plain's;
+               (c) ``bd_report`` of (a)'s curves, each delta the golden curve's;
+               (d) ``validate_rd`` (six methods, 200 steps) PASSes with every
+               method below amortized, and ``validate_rd --bb`` on the first
+               photo PASSes with both streams' initial bits back; (e)
+               ``converge_aux`` on a copy of the run, a dry run and then 2000
+               steps: the aux loss falls, only the quantiles change, and the
+               run serves ``mbt2018 compress`` -> ``decompress`` exactly.
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -197,8 +214,9 @@ BB_SCRIPTS = ("bb_plain", "bb_sga", "bb_no_sga")
 JAX_BB_PLAIN = dict(est_bpp=0.5444669425487518, psnr=29.0546875,
                     actual_bpp=50265 * 8 / (3 * 384 * 512))
 # nic_tpu's means over seeds, on the CPU: est. net bpp over the evaluation
-# samples of seeds 0..15 (one standard deviation 0.13 % of one sample), the
-# stream's actual bpp over seeds 0..31 (2.4 % of one stream):
+# samples of seeds 0..199 (one standard deviation 0.19 % of one sample, its
+# mean's standard error 0.013 %), the stream's actual bpp over seeds 0..31
+# (2.4 % of one stream):
 #   JAX_PLATFORMS=cpu python -c "import numpy as np; \
 #     from nic_tpu.train.trainer import TrainConfig, Trainer; \
 #     from nic_tpu.infer.bb import BBLatentOptimizer, BB_PLAIN; \
@@ -209,10 +227,12 @@ JAX_BB_PLAIN = dict(est_bpp=0.5444669425487518, psnr=29.0546875,
 #     x = np.load('data_real/eval_photos.npy').astype(np.float32) / 255.0; \
 #     opt = BBLatentOptimizer(tr.model, p); codec = BitsBackCodec(tr.model, p); \
 #     est = [float(opt.optimize(x, 0.01, spec=BB_PLAIN, seed=s)['est_bpp'].mean()) \
-#            for s in range(16)]; \
+#            for s in range(200)]; \
 #     act = [codec.compress(x, seed=s)[1]['actual_bpp'] for s in range(32)]; \
 #     print(float(np.mean(est)), float(np.std(est)), float(np.mean(act)), float(np.std(act)))"
-#   -> 0.5438225641846657 0.000727078908949264 0.6670116848415799 0.01572224405249451
+#   -> est mean 0.543394, sd 1.02e-3 (to 6 digits); actual 0.6670116848415799, sd
+#      0.01572224405249451. (Over seeds 0..15 the est. mean reads 0.5438225641846657,
+#      0.08 % above the 200-seed mean: too few samples for a reference.)
 # nic_tpu's `bb_no_sga compress` of the same photos (1000 rate steps, one
 # run of its draws), on the CPU: printed beside the port's, not held:
 #   JAX_PLATFORMS=cpu python -m nic_tpu --num_filters 192 \
@@ -220,9 +240,9 @@ JAX_BB_PLAIN = dict(est_bpp=0.5444669425487518, psnr=29.0546875,
 #     mbt2018_bb-num_filters=192-lmbda=0.01 data_real/eval_photos.npy
 #   -> est_bpp (mean) in r/rd-bb_no_sga-lmbda=0.01+mbt2018_bb-...-input=eval_photos.npy.npz
 JAX_BB_NO_SGA_EST = 0.46982138355573017
-JAX_BB_PLAIN_EST_MEAN = 0.5438225641846657
+JAX_BB_PLAIN_EST_MEAN = 0.543394
 JAX_BB_PLAIN_ACTUAL_MEAN = 0.6670116848415799
-BB_EST_SEEDS = 16
+BB_EST_SEEDS = 200
 BB_STREAM_SEEDS = 32
 # The means of 32 streams on each side differ by 0.6 % at one standard
 # deviation; 2 % is 3.3 of those (the port's CPU run: 0.06 % off).
@@ -230,6 +250,11 @@ BB_ACTUAL_MEAN_RTOL = 0.02
 # The first steps of each phase on a 64x64 crop, card against CPU, fed the
 # same draws: each step's loss, max-norm relative (as METHOD_LOSS_RTOL).
 BB_STEPS = 20
+# bb_plain on the full photos, the card against the port's CPU path, both fed
+# the same evaluation draw (eps): est. net bpp per image, relative. float32
+# sums in another order; a rounding of y* that the card's last bits flip
+# would move it by a few bits in ~3e5.
+BB_EPS_RTOL = 1e-5
 
 # K1 against its plain version, max-norm relative: fp32 accumulation in
 # another order (float32); bf16 output rounding, plain version in fp32 on
@@ -360,6 +385,24 @@ WINDOW_STEPS = 50
 # SGA steps of the CLI's --data_parallel and --spatial runs in (e), which
 # check the CLI and the streams; (b) to (d) hold the paths at full depth.
 CLI_ITS = 200
+
+# Phase 14, evaluation and reporting, through the tools on the lambda=0.01
+# runs. nic_tpu's rows of that run (bf16 transforms, SGA 2000 steps), from
+# results/photos_synth3/rd_curve.json (results/ is not in the chip copy):
+JAX_RD_ROWS = {"amortized": dict(bpp=0.5314129590988159, psnr=29.180017471313477),
+               "sga": dict(bpp=0.5140546560287476, psnr=30.519134521484375)}
+# Amortized is held at BPP_RTOL and PSNR_ATOL_DB. SGA's Gumbel draws are
+# torch's, not JAX's: bpp at BPP_RTOL, PSNR at 0.1 dB (bf16 SGA on the card
+# measured 0.03 % and 0.015 dB off; a broken SGA lands at amortized's
+# values, 3.4 % away in bpp).
+RD_SGA_PSNR_ATOL_DB = 0.1
+# rd_curve --model mbt2018_bb: bb_sga's RD phase; validate_rd's steps per
+# method; converge_aux's steps.
+EVAL_BB_ITS = 500
+VALIDATE_ITS = 200
+AUX_STEPS = 2000
+# A row of a <method>-psnr.csv, the reference's format.
+CSV_ROW = r"\d+\.\d{4},\d+\.\d{6}"
 
 T0 = time.perf_counter()
 
@@ -1102,8 +1145,10 @@ def run_bits_back(workdir):
 def check_bb_plain_means():
     """bb_plain on the card: the est. net bpp over BB_EST_SEEDS evaluation
     samples and the stream's actual bpp over BB_STREAM_SEEDS seeds, against
-    nic_tpu's means over the same seeds."""
+    nic_tpu's means; and, fed one fixed evaluation draw, the card against the
+    port's CPU path on the full photos."""
     import numpy as np
+    import torch
 
     from nic_tpu_torch.checkpoint import load_model
     from nic_tpu_torch.coding.bb_codec import BitsBackCodec
@@ -1112,8 +1157,10 @@ def check_bb_plain_means():
     x = np.load(PHOTOS).astype(np.float32) / 255.0
     _, model = load_model(CKPT_DIR, BB_RUN, 192, "cuda", model="mbt2018_bb")
     opt = BBLatentOptimizer(model, "cuda")
+    t = time.perf_counter()
     est = [float(opt.optimize(x, LMBDA, BB_PLAIN, seed=s)["est_bpp"].mean())
            for s in range(BB_EST_SEEDS)]
+    est_secs = time.perf_counter() - t
     codec = BitsBackCodec(model, "cuda")
     actual = []
     for s in range(BB_STREAM_SEEDS):
@@ -1121,21 +1168,53 @@ def check_bb_plain_means():
         actual.append(info["actual_bpp"])
     init_ok = codec.decompress(blob)[1]
     est_mean, actual_mean = float(np.mean(est)), float(np.mean(actual))
-    d_est = abs(est_mean - JAX_BB_PLAIN_EST_MEAN) / JAX_BB_PLAIN_EST_MEAN
+    d_est = (est_mean - JAX_BB_PLAIN_EST_MEAN) / JAX_BB_PLAIN_EST_MEAN
     d_act = abs(actual_mean - JAX_BB_PLAIN_ACTUAL_MEAN) / JAX_BB_PLAIN_ACTUAL_MEAN
+    est_se = float(np.std(est) / np.sqrt(BB_EST_SEEDS))
     log(f"bb_plain over seeds on the card: est net bpp mean of {BB_EST_SEEDS} "
-        f"{est_mean!r} (sd {np.std(est):.2e}) vs nic_tpu's {JAX_BB_PLAIN_EST_MEAN!r} "
-        f"(rel diff {d_est:.2e}, tolerance {BPP_RTOL:g}); actual bpp mean of "
+        f"{est_mean!r} (sd {np.std(est):.2e}, standard error {est_se:.2e}; {est_secs:.1f} s) "
+        f"vs nic_tpu's {JAX_BB_PLAIN_EST_MEAN!r} (rel diff {d_est:+.2e} = "
+        f"{d_est * JAX_BB_PLAIN_EST_MEAN / est_se:+.2f} standard errors, tolerance "
+        f"{BPP_RTOL:g}); actual bpp mean of "
         f"{BB_STREAM_SEEDS} streams {actual_mean!r} (sd {np.std(actual):.2e}, min "
         f"{min(actual)!r}, max {max(actual)!r}) vs nic_tpu's {JAX_BB_PLAIN_ACTUAL_MEAN!r} "
         f"(rel diff {d_act:.2e}, tolerance {BB_ACTUAL_MEAN_RTOL:g})")
     if not init_ok:
         raise AssertionError("bb_plain: the last seed's stream did not return its bits")
-    if d_est > BPP_RTOL or d_act > BB_ACTUAL_MEAN_RTOL:
+    if abs(d_est) > BPP_RTOL or d_act > BB_ACTUAL_MEAN_RTOL:
         raise AssertionError("bb_plain's est. or actual bpp disagrees with nic_tpu's")
-    return dict(est_bpp_mean=est_mean, est_bpp_seeds=BB_EST_SEEDS,
+
+    # One evaluation draw fed to both: what is left is the forward's arithmetic.
+    eps = {}
+
+    def noise_fn(step, name, shape):
+        if shape not in eps:
+            eps[shape] = torch.from_numpy(
+                np.random.default_rng(0).standard_normal(shape).astype(np.float32))
+        return eps[shape]
+
+    cpu = BBLatentOptimizer(load_model(CKPT_DIR, BB_RUN, 192, "cpu", model="mbt2018_bb")[1],
+                            "cpu")
+    r_g = opt.optimize(x, LMBDA, BB_PLAIN, seed=0, noise_fn=noise_fn)
+    r_c = cpu.optimize(x, LMBDA, BB_PLAIN, seed=0, noise_fn=noise_fn)
+    errs = {k: float(np.max(np.abs(r_g[k] - r_c[k]) / np.abs(r_c[k])))
+            for k in ("est_bpp", "est_y_bpp", "est_z_bpp", "est_bpp_back")}
+    y_flips = int(np.sum(r_g["y"] != r_c["y"]))
+    e_post = max(float(np.abs(r_g[k] - r_c[k]).max() / np.abs(r_c[k]).max())
+                 for k in ("z_mean", "z_logvar"))
+    log(f"bb_plain on the full photos fed one eps, card vs CPU: est net bpp rel err "
+        f"{errs['est_bpp']:.2e} (tolerance {BB_EPS_RTOL:g}; card {r_g['est_bpp'].tolist()}, "
+        f"CPU {r_c['est_bpp'].tolist()}); y {errs['est_y_bpp']:.2e}, z {errs['est_z_bpp']:.2e}, "
+        f"bits back {errs['est_bpp_back']:.2e}; y* differs in {y_flips} of {r_c['y'].size}; "
+        f"posterior rel err {e_post:.2e}; PSNR diff "
+        f"{float(np.abs(r_g['psnr'] - r_c['psnr']).max()):.2e} dB")
+    if not errs["est_bpp"] <= BB_EPS_RTOL:
+        raise AssertionError("bb_plain fed the same eps: the card disagrees with the CPU")
+    return dict(est_bpp_mean=est_mean, est_bpp_sd=float(np.std(est)),
+                est_bpp_seeds=BB_EST_SEEDS, est_bpp_rel_diff=d_est,
                 actual_bpp_mean=actual_mean, actual_bpp_sd=float(np.std(actual)),
-                stream_seeds=BB_STREAM_SEEDS)
+                stream_seeds=BB_STREAM_SEEDS, eps_fed_card_vs_cpu_rel_err=errs,
+                eps_fed_y_star_flips=y_flips)
 
 
 def check_bb_card_vs_cpu():
@@ -2066,6 +2145,257 @@ def run_parallel_cli(workdir, photo0):
     return out
 
 
+def linked_run(ckpt_dir, runname):
+    """<ckpt_dir>/<runname> holding the committed run's args.json and a link
+    to its npz, so that a tool writes beside it and not into the checkout."""
+    import glob
+
+    run_dir = os.path.join(ckpt_dir, runname)
+    os.makedirs(run_dir)
+    src = os.path.join(CKPT_DIR, runname)
+    shutil.copy(os.path.join(src, "args.json"), run_dir)
+    for npz in glob.glob(os.path.join(src, "params-*.npz")):
+        os.symlink(npz, os.path.join(run_dir, os.path.basename(npz)))
+    return run_dir
+
+
+def captured(fn, *args):
+    """(fn's result, what it printed), its output printed as well."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    print(out.getvalue(), end="", flush=True)
+    return result, out.getvalue()
+
+
+def check_csvs(out_dir, names):
+    import re
+
+    for name in names:
+        with open(os.path.join(out_dir, f"{name}-psnr.csv")) as f:
+            rows = f.read().splitlines()
+        if not rows or not all(re.fullmatch(CSV_ROW, r) for r in rows):
+            raise AssertionError(f"{name}-psnr.csv is not in the reference format: {rows}")
+
+
+def run_rd_curve(workdir):
+    """(a) rd_curve of the lambda=0.01 run, amortized and SGA 2000 (bf16),
+    against nic_tpu's rows."""
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import rd_curve
+
+    out_dir = os.path.join(workdir, "rd_photos")
+    t = time.perf_counter()
+    gdn_cuda.launches = 0
+    (row,) = rd_curve.main([PHOTOS, "--checkpoint_dir", CKPT_DIR, "--out", out_dir,
+                            "--lmbda", str(LMBDA), "--methods", "amortized,sga",
+                            "--its", str(SGA_ITS)])
+    launches = gdn_cuda.launches
+    secs = time.perf_counter() - t
+    for name, ref in JAX_RD_ROWS.items():
+        got = row["methods"][name]
+        d_bpp = abs(got["bpp"] - ref["bpp"]) / ref["bpp"]
+        d_psnr = abs(got["psnr"] - ref["psnr"])
+        atol = RD_SGA_PSNR_ATOL_DB if name == "sga" else PSNR_ATOL_DB
+        log(f"rd_curve {name}: {got['bpp']!r} bpp, {got['psnr']!r} dB, MS-SSIM "
+            f"{got['msssim']!r}, {got['secs']:.1f} s; nic_tpu's row {ref['bpp']!r} bpp, "
+            f"{ref['psnr']!r} dB (rel diff {d_bpp:.2e}, tolerance {BPP_RTOL:g}; diff "
+            f"{d_psnr:.2e} dB, tolerance {atol:g})")
+        if not (d_bpp <= BPP_RTOL and d_psnr <= atol):
+            raise AssertionError(f"rd_curve's {name} row disagrees with nic_tpu's")
+    check_csvs(out_dir, JAX_RD_ROWS)
+    log(f"rd_curve: wrote {sorted(os.listdir(out_dir))}; K1 launches {launches} "
+        f"(>= {3 * SGA_ITS} required); {secs:.1f} s")
+    if launches < 3 * SGA_ITS:
+        raise AssertionError(f"K1 launched {launches} times on rd_curve")
+    return out_dir, row, dict(k1_launches=launches, rows=row["methods"], seconds=secs)
+
+
+def run_rd_curve_bb(workdir):
+    """(b) rd_curve --model mbt2018_bb, bb_plain and bb_sga, against
+    BBLatentOptimizer.optimize called here with the same spec and seed,
+    both with deterministic cuDNN."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.checkpoint import load_model
+    from nic_tpu_torch.infer.bb import BB_METHODS, BBLatentOptimizer
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import rd_curve
+
+    names = ("bb_plain", "bb_sga")
+    out_dir = os.path.join(workdir, "rd_photos_bb")
+    t = time.perf_counter()
+    deterministic(True)
+    try:
+        gdn_cuda.launches = 0
+        (row,) = rd_curve.main([PHOTOS, "--checkpoint_dir", CKPT_DIR, "--out", out_dir,
+                                "--model", "mbt2018_bb", "--lmbda", str(LMBDA),
+                                "--methods", ",".join(names), "--its", str(EVAL_BB_ITS)])
+        launches = gdn_cuda.launches
+        secs = time.perf_counter() - t
+        _, model = load_model(CKPT_DIR, BB_RUN, 192, "cuda", compute_dtype=torch.bfloat16,
+                              model="mbt2018_bb")
+        opt = BBLatentOptimizer(model, "cuda")
+        x = np.load(PHOTOS).astype(np.float32) / 255.0
+        ref = {}
+        for name in names:
+            spec = BB_METHODS[name]
+            if spec.rd_iterations > 0:
+                spec = spec.replace(rd_iterations=EVAL_BB_ITS)
+            ref[name] = opt.optimize(x, LMBDA, spec=spec, seed=0)
+    finally:
+        deterministic(False)
+    rd = {}
+    for name in names:
+        got, r = row["methods"][name], ref[name]
+        want = dict(bpp=float(np.mean(r["est_bpp"])), psnr=float(np.mean(r["psnr"])),
+                    msssim=float(np.mean(r["msssim"])))
+        rd[name] = float(LMBDA * r["mse"].mean() + r["est_bpp"].mean())
+        log(f"rd_curve_bb {name}: {got['bpp']!r} bpp, {got['psnr']!r} dB, MS-SSIM "
+            f"{got['msssim']!r}, {got['secs']:.1f} s; BBLatentOptimizer.optimize "
+            f"{want['bpp']!r} bpp, {want['psnr']!r} dB; RD objective {rd[name]!r}")
+        if not all(np.array_equal(got[k], v, equal_nan=True) for k, v in want.items()):
+            raise AssertionError(f"rd_curve_bb's {name} row differs from optimize's")
+    check_csvs(out_dir, names)
+    log(f"rd_curve_bb: rows equal to optimize's bit for bit; bb_sga's RD objective "
+        f"{rd['bb_sga']!r} vs bb_plain's {rd['bb_plain']!r}; K1 launches {launches} "
+        f"(>= {3 * EVAL_BB_ITS} required); {secs:.1f} s")
+    if not rd["bb_sga"] < rd["bb_plain"]:
+        raise AssertionError("rd_curve_bb: bb_sga did not lower the RD objective")
+    if launches < 3 * EVAL_BB_ITS:
+        raise AssertionError(f"K1 launched {launches} times on rd_curve_bb")
+    return dict(k1_launches=launches, rows=row["methods"], rd_objective=rd, seconds=secs)
+
+
+def run_bd_report(out_dir, row):
+    """(c) bd_report of (a)'s curves: each delta is the golden curve's."""
+    from nic_tpu_torch.evaluation import golden
+    from nic_tpu_torch.tools import bd_report
+
+    report = bd_report.main([out_dir])
+    for csvname, gmethod in (("amortized", "mbt2018"), ("sga", "sga")):
+        res = row["methods"][csvname]
+        b, p = float(f"{res['bpp']:.4f}"), float(f"{res['psnr']:.6f}")
+        want = p - golden.interp_psnr_at_bpp("kodak", gmethod, b)
+        if report[csvname]["points"] != [(b, p)] or report[csvname]["deltas"] != [want]:
+            raise AssertionError(f"bd_report's {csvname} delta is not the golden curve's")
+    log(f"bd_report: deltas vs golden kodak "
+        f"{ {k: v['deltas'] for k, v in report.items()} } equal the golden curves' at "
+        f"(a)'s points")
+    return {k: dict(deltas=v["deltas"], gap=v["gap"]) for k, v in report.items()}
+
+
+def run_validate_rd(workdir):
+    """(d) validate_rd on the lambda=0.01 run (six methods, VALIDATE_ITS
+    steps), then --bb on the bits-back run and the first photo."""
+    import numpy as np
+
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import validate_rd
+
+    ckpt = os.path.join(workdir, "validate")
+    paths = {}
+    for key, run, extra in (("validate_rd", RUN, ["--its", str(VALIDATE_ITS)]),
+                            ("validate_rd_bb", BB_RUN, ["--bb"])):
+        run_dir = linked_run(ckpt, run)
+        data = PHOTOS
+        if key == "validate_rd_bb":
+            data = os.path.join(workdir, "photo_0.npy")
+            np.save(data, np.load(PHOTOS)[:1])
+        t = time.perf_counter()
+        gdn_cuda.launches = 0
+        code, text = captured(validate_rd.main, [run, data, "--checkpoint_dir", ckpt] + extra)
+        launches = gdn_cuda.launches
+        secs = time.perf_counter() - t
+        with open(os.path.join(run_dir, "VALIDATION.json")) as f:
+            record = json.load(f)
+        results = record["results"]
+        log(f"{key}: exit {code}; K1 launches {launches}; {secs:.1f} s")
+        if code != 0 or not text.rstrip().splitlines()[-1].startswith("PASS"):
+            raise AssertionError(f"{key} did not PASS")
+        if key == "validate_rd":
+            worse = [n for n, r in results.items()
+                     if n != "amortized" and not r["rd_loss"] < results["amortized"]["rd_loss"]]
+            if worse:
+                raise AssertionError(f"validate_rd: {worse} did not beat amortized")
+            need = 3 * VALIDATE_ITS
+        else:
+            if text.count("bits recovered: True") != 2:
+                raise AssertionError("validate_rd --bb: a stream did not return its bits")
+            need = 3 * 2000
+        if launches < need:
+            raise AssertionError(f"K1 launched {launches} times on {key} (>= {need})")
+        paths[key] = dict(k1_launches=launches, seconds=secs, **record)
+    return paths
+
+
+def run_converge_aux(workdir, mbt2018_path):
+    """(e) converge_aux on a copy of the lambda=0.01 run: a dry run, then
+    AUX_STEPS steps to half the loss; only the quantiles change, and the run
+    then serves mbt2018 compress -> decompress exactly."""
+    import numpy as np
+
+    from nic_tpu_torch.checkpoint import latest_npz, load_params_npz
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import converge_aux
+
+    ckpt = os.path.join(workdir, "aux")
+    run_dir = os.path.join(ckpt, RUN)
+    shutil.copytree(os.path.join(CKPT_DIR, RUN), run_dir)
+    _, original = load_params_npz(latest_npz(run_dir))
+    dry = converge_aux.main([run_dir, "--dry_run"])
+    before = dry["before"]
+    t = time.perf_counter()
+    gdn_cuda.launches = 0
+    res = converge_aux.main([run_dir, "--threshold", repr(before / 2), "--steps",
+                             str(AUX_STEPS)])
+    tool_launches = gdn_cuda.launches
+    secs = time.perf_counter() - t
+    _, repaired = load_params_npz(latest_npz(run_dir))
+    changed = sorted(k for k in original if not np.array_equal(original[k], repaired[k]))
+    log(f"converge_aux: aux loss {before!r} -> {res['after']!r} after {res['steps']} steps "
+        f"({secs:.2f} s on the card); changed {changed}")
+    if dry["rewritten"] or not (res["rewritten"] and res["after"] < before):
+        raise AssertionError("converge_aux did not lower the aux loss")
+    if set(repaired) != set(original) or not changed or any(
+            "quantiles" not in k for k in changed):
+        raise AssertionError(f"converge_aux changed {changed}, not the quantiles alone")
+
+    common = ["--num_filters", "192", "--checkpoint_dir", ckpt, "mbt2018"]
+    stream = os.path.join(workdir, "photos_aux.ntc")
+    png = os.path.join(workdir, "photos_aux.png")
+    gdn_cuda.launches = 0
+    out = cli_main(common + ["compress", RUN, PHOTOS, stream, "--results_dir",
+                             os.path.join(workdir, "results_aux")])
+    dec = cli_main(common + ["decompress", RUN, stream, png])
+    serve_launches = gdn_cuda.launches
+    check_exact("mbt2018 (converged quantiles)", dec, png, out["pixels"])
+    actual = float(out["results"]["avg_batch_actual_bpp"])
+    log(f"converge_aux: the repaired run serves mbt2018 compress -> decompress exactly: "
+        f"actual {actual!r} bpp (the committed run: {mbt2018_path['actual_bpp']!r}); K1 "
+        f"launches {tool_launches} in the tool, {serve_launches} serving")
+    if serve_launches < 9:
+        raise AssertionError("the repaired run's codec path did not run K1")
+    return dict(k1_launches=tool_launches + serve_launches, k1_launches_tool=tool_launches,
+                aux_before=before, aux_after=res["after"], steps=res["steps"],
+                seconds=secs, changed=changed, actual_bpp=actual)
+
+
+def run_evaluation(workdir, mbt2018_path):
+    """Phase 14: the evaluation and reporting tools on the card."""
+    out_dir, row, rd_path = run_rd_curve(workdir)
+    paths = dict(rd_curve=rd_path, rd_curve_bb=run_rd_curve_bb(workdir))
+    paths["rd_curve"]["bd_report"] = run_bd_report(out_dir, row)
+    paths.update(run_validate_rd(workdir))
+    paths["converge_aux"] = run_converge_aux(workdir, mbt2018_path)
+    return paths
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -2188,6 +2518,10 @@ def main():
                         dp_training=check_dp_training(workdir))
         parallel.update(run_parallel_cli(workdir, os.path.join(photos_dir, "photo_0.png")))
         log(f"multi-GPU done in {time.perf_counter() - t:.1f} s")
+
+        t = time.perf_counter()
+        evaluation = run_evaluation(workdir, mbt2018_path)
+        log(f"evaluation done in {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir)
 
@@ -2213,7 +2547,8 @@ def main():
                 dp_train_nccl_1=parallel["dp_training"]["nccl_1"]["k1_launches"],
                 dp_train_gloo_2=parallel["dp_training"]["gloo_2"]["k1_launches"],
                 sga_data_parallel=parallel["data_parallel"]["k1_launches"],
-                sga_spatial=parallel["spatial_cli"]["k1_launches"]),
+                sga_spatial=parallel["spatial_cli"]["k1_launches"],
+                **{k: v["k1_launches"] for k, v in evaluation.items()}),
             max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
@@ -2227,7 +2562,8 @@ def main():
              "bf16 amortized": dict(est_bpp=float(amortized_bf16["est_bpp"].mean()),
                                     psnr=float(amortized_bf16["psnr"].mean())),
              **method_paths, **bb_paths, "train": train_path, "train_bb": train_bb_path,
-             "learned_prior": prior_path, **parallel}
+             "learned_prior": prior_path, **parallel, **evaluation}
+    log(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -38,8 +38,8 @@ no effect on ``mbt2018`` and the bits-back scripts. ``train`` with
 rank i of N data-parallel ranks: N counts ranks, one per card (nic_tpu's
 processes own every chip of their host).
 
-Every other flag (``--plot``, the ``--quant`` variants) exits non-zero with
-"not ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
+Every other flag (the ``--quant`` variants) exits non-zero with "not
+ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
 is given, and raises when there is no card. Streams decode with the same
 code on the same device type: ``decompress`` takes the ``--device`` that
 ``compress`` was given. The transforms compute in float32, as nic_tpu's CLI

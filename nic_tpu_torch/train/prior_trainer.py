@@ -2,7 +2,10 @@
 (counterpart of nic_tpu/train/prior_trainer.py): a ``FactorizedEntropyModel``
 fitted to [N, channels] samples by maximizing its log pdf with Adam over the
 whole dataset each step, stopping early on a small relative change; it
-saves the weights (``prior_model.npz``, nic_tpu's keys) and a record.
+saves the weights (``prior_model.npz``, nic_tpu's keys) and a record, and
+with ``--plot`` each of the first 8 channels' fitted pdf beside the data's
+histogram (``fitted_density.png``, matplotlib; without it ``--plot`` fails
+with the import's error, as nic_tpu's does).
 """
 
 import json
@@ -83,8 +86,6 @@ def prior_params(model: FactorizedEntropyModel):
 def train_prior_cli(args) -> str:
     """Load the .npy samples, fit, and save the weights, the config and the
     record under <checkpoint_dir>/<runname>/. Returns that directory."""
-    if getattr(args, "plot", False):
-        raise SystemExit("nic_tpu_torch: learned_prior --plot is not ported yet (ROADMAP.md)")
     cfg = PriorTrainConfig(
         num_channels=args.num_channels,
         dims=tuple(args.dims),
@@ -103,6 +104,43 @@ def train_prior_cli(args) -> str:
         json.dump(asdict(cfg), f, indent=4, sort_keys=True)
     model, record = fit_factorized_prior(data, cfg, device=args.device)
     np.savez(os.path.join(save_dir, "prior_model.npz"), **prior_params(model))
+    if args.plot:
+        plot_fitted_density(model, data, save_dir)
     with open(os.path.join(save_dir, "record.json"), "w") as f:
         json.dump(record, f, indent=4, sort_keys=True)
     return save_dir
+
+
+@torch.no_grad()
+def fitted_pdf_grid(model: FactorizedEntropyModel):
+    """(xs, pdf): the prior's pdf of every channel at 200 points of
+    [-5, 5], pdf of shape [200, channels]."""
+    xs = np.linspace(-5, 5, 200).astype(np.float32)
+    grid = torch.tensor(xs, device=model.quantiles.device)[:, None].repeat(1, model.channels)
+    return xs, model.pdf(grid).cpu().numpy()
+
+
+def plot_fitted_density(model: FactorizedEntropyModel, data: np.ndarray, save_dir: str) -> str:
+    """fitted_density.png: the first (at most 8) channels' fitted pdf beside
+    the histogram of their samples. Returns its path."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    xs, q_xs = fitted_pdf_grid(model)
+    k = min(model.channels, 8)
+    cols = min(k, 4)
+    rows_n = -(-k // cols)
+    plt.figure(figsize=(12, 8))
+    for c in range(k):
+        plt.subplot(rows_n, cols, c + 1)
+        plt.plot(xs, q_xs[:, c], label="$q(x)$")
+        plt.hist(data[:, c].ravel(), bins=31, density=True, alpha=0.4, label="data")
+        plt.title(f"channel {c}")
+    plt.legend()
+    plt.tight_layout()
+    path = os.path.join(save_dir, "fitted_density.png")
+    plt.savefig(path)
+    plt.close()
+    return path

@@ -559,6 +559,8 @@ class Trainer:
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
+            if writer is not None:
+                writer.close()
         if stop_requested.is_set() and verbose:
             print(f"SIGTERM: stopping at step {self.step}; saving checkpoint.")
         self._flush_losses()

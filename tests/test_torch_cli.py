@@ -196,15 +196,6 @@ def test_unported_parts_exit_nonzero(workdir, extra, script, before):
     assert "not ported yet (ROADMAP.md)" in str(info.value.code)
 
 
-@pytest.mark.parametrize("argv", [
-    ["learned_prior", "--num_channels", "4", "--data_path", "x.npy", "--plot"],
-])
-def test_unported_commands_exit_nonzero(argv):
-    with pytest.raises(SystemExit) as info:
-        main(argv)
-    assert "not ported yet (ROADMAP.md)" in str(info.value.code)
-
-
 @pytest.mark.parametrize("extra,script,message", [
     (("--data_parallel", "--spatial"), "sga", "mutually exclusive"),
     (("--data_parallel", "--spatial"), "map", "mutually exclusive"),
