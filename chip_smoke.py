@@ -114,6 +114,20 @@ Phases, each printed with its elapsed seconds:
                ``converge_aux`` on a copy of the run, a dry run and then 2000
                steps: the aux loss falls, only the quantiles change, and the
                run serves ``mbt2018 compress`` -> ``decompress`` exactly.
+ 15. int8 and up-sampling variants - (a) each int8 up-conv of g_s and h_s
+               (ops/int8conv.py: im2col and torch._int_mm, not a kernel of
+               this repo) at the photos' shapes with the model's weights,
+               equal bit for bit to the port's CPU path, timed beside cuDNN's
+               bf16 transposed conv and its bound at the int8 peak; (b)
+               ``mbt2018 compress --quant int8`` -> ``decompress --quant
+               int8``: exact, its actual bpp against nic_tpu's; (c) bf16 SGA
+               at --quant none, int8 and int8_all through LatentOptimizer,
+               500 steps each: ms/step, below amortized, each stream decoded
+               exactly, and the first 20 steps of int8 and int8_all on a
+               crop, the card against the port's CPU path; (d) the phases
+               and subpixel up-convs against the transposed conv at g_s's
+               largest layer, float32, timed; (e) K1's launches counted from
+               zero on (b) and (c).
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -403,6 +417,45 @@ VALIDATE_ITS = 200
 AUX_STEPS = 2000
 # A row of a <method>-psnr.csv, the reference's format.
 CSV_ROW = r"\d+\.\d{4},\d+\.\d{6}"
+
+# Phase 15, int8 and up-sampling variants. The int8 convs at the photos'
+# shapes (N, H, W, C, Co): g_s's three up-convs and h_s's two.
+INT8_SHAPES = ((3, 24, 32, 192, 192), (3, 48, 64, 192, 192), (3, 96, 128, 192, 192),
+               (3, 6, 8, 192, 192), (3, 12, 16, 192, 288))
+INT8_LAYERS = ("synthesis.layer_0", "synthesis.layer_1", "synthesis.layer_2",
+               "hyper_synthesis.layer_0", "hyper_synthesis.layer_1")
+# Hopper's dense int8 tensor-core peak (NVIDIA's data sheet, H100 SXM).
+PEAK_INT8_OPS = 1979e12
+# nic_tpu's actual bpp of `mbt2018 compress --quant int8` of the photos
+# (one stream of the 3-image batch), on the CPU:
+#   JAX_PLATFORMS=cpu python -m nic_tpu --num_filters 192 \
+#     --checkpoint_dir checkpoints_synth3 mbt2018 compress --quant int8 \
+#     --results_dir r mbt2018-num_filters=192-lmbda=0.01 \
+#     data_real/eval_photos.npy photos.ntc
+#   -> avg_batch_actual_bpp in r/rd-mbt2018-...-input=eval_photos.npy.npz (38586
+#      bytes); its est. bpp and PSNR (means), printed beside the port's
+JAX_INT8_ACTUAL_BPP = 0.5233561197916666
+JAX_INT8_EST = dict(est_bpp=0.5309748152891794, psnr=29.02895673116048)
+# bf16 SGA at --quant none, int8 and int8_all through LatentOptimizer, each
+# METHOD_ITS steps (cut from 2000 as phase 10's methods); the first
+# QUANT_STEPS steps on a 64x64 crop, the card against the port's CPU path,
+# fed the same Gumbel draws, with the CLI's float32 transforms. The first
+# step's loss within QUANT_FIRST_RTOL (float32 sums in another order:
+# measured 1.2e-7 on an H100). Every step's within QUANT_LOSS_RTOL: an int8
+# rounding is a step function, so a float32 ulp of its input, which the two
+# devices' sums in another order give, can move one element by 1/127 of its
+# tensor's scale; it moved single steps' losses by up to 2.1e-3 (int8) and
+# 4.7e-3 (int8_all) on an H100, where float32 without int8 stays below
+# 1.5e-6. With the bf16 transforms the card and the CPU round every bf16
+# conv in another order: 8.4e-4 without int8 and 4.15e-3 with it on an
+# H100, so the bf16 steps are not compared.
+QUANT_MODES = ("none", "int8", "int8_all")
+QUANT_STEPS = 20
+QUANT_FIRST_RTOL = 1e-5
+QUANT_LOSS_RTOL = 1e-2
+# The phases and subpixel up-convs against the transposed conv at g_s's
+# largest layer, float32 (the CPU tests' value tolerance, max-norm).
+VARIANT_RTOL = 1e-5
 
 T0 = time.perf_counter()
 
@@ -2396,6 +2449,218 @@ def run_evaluation(workdir, mbt2018_path):
     return paths
 
 
+def int8_bound_ms(n, h, w, c, co):
+    """The int8 up-conv's bound: its bf16 input read, its int8 weights read
+    and its bf16 output written once, over HBM's rate; its 25 multiply-adds
+    per input pixel, channel and output channel over the int8 peak."""
+    nbytes = n * h * w * c * 2 + 25 * c * co + 4 * n * h * w * co * 2
+    ops = 2 * n * h * w * 25 * c * co
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int8_convs(model_bf16_cpu):
+    """(a) Each int8 up-conv of g_s and h_s at the photos' shapes, with the
+    model's own weights: the card's int32 sums and bf16 outputs equal the
+    port's CPU path bit for bit; timed beside cuDNN's bf16 transposed conv
+    of the same shape and the bound. (d) The phases and subpixel forms at
+    g_s's largest layer against the transposed conv, float32, timed."""
+    import torch
+
+    from nic_tpu_torch.models import layers
+    from nic_tpu_torch.ops import int8conv
+
+    gen = torch.Generator().manual_seed(15)
+    rows = []
+    for (n, h, w, c, co), name in zip(INT8_SHAPES, INT8_LAYERS):
+        weight = model_bf16_cpu.get_submodule(name).hwio().detach().to(torch.bfloat16)
+        x = torch.randn(n, h, w, c, generator=gen).to(torch.bfloat16)
+        xq, _ = int8conv.quantize_per_tensor(x)
+        wq, _ = int8conv.quantize_weight_per_cout(weight)
+        want_acc = int8conv.conv_int32(xq, wq, 2, True)
+        want = int8conv.int8_conv(x, weight, 2, True)
+        xc, wc, xqc, wqc = x.cuda(), weight.cuda(), xq.cuda(), wq.cuda()
+        got_acc = int8conv.conv_int32(xqc, wqc, 2, True)
+        got = int8conv.int8_conv(xc, wc, 2, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_acc.cpu(), want_acc) and torch.equal(got.cpu(), want)):
+            raise AssertionError(f"int8 conv {name} {(n, h, w, c, co)}: the card differs "
+                                 "from the CPU path")
+        wt = wc.flip(0, 1).permute(2, 3, 0, 1).contiguous()  # conv_transpose2d's layout
+        ms = time_ms(lambda: int8conv.int8_conv(xc, wc, 2, True))
+        gemm_ms = time_ms(lambda: int8conv.conv_int32(xqc, wqc, 2, True))
+        cudnn_ms = time_ms(lambda: layers.conv_transpose_up2(xc, wt))
+        # int8_all's input cotangent: the int8 stride-2 conv of the quantized
+        # cotangent (the same bound: the same products, read and write reversed).
+        g = torch.randn(n, 2 * h, 2 * w, co, generator=gen).to(torch.bfloat16)
+        gc = g.cuda()
+        dx = int8conv.qbwd_x_up2(gc, wc)
+        torch.cuda.synchronize()
+        if not torch.equal(dx.cpu(), int8conv.qbwd_x_up2(g, weight)):
+            raise AssertionError(f"int8 input cotangent {name}: the card differs from the CPU")
+        qbwd_ms = time_ms(lambda: int8conv.qbwd_x_up2(gc, wc))
+        cudnn_dx_ms = time_ms(lambda: torch.nn.functional.conv2d(
+            gc.permute(0, 3, 1, 2), wt, stride=2, padding=1))
+        bound, bound_by = int8_bound_ms(n, h, w, c, co)
+        rows.append(dict(layer=name, shape=[n, h, w, c, co], ms=ms, int32_gemm_ms=gemm_ms,
+                         cudnn_bf16_ms=cudnn_ms, qbwd_ms=qbwd_ms, cudnn_bf16_dx_ms=cudnn_dx_ms,
+                         bound_ms=bound, bound_by=bound_by, exact_vs_cpu=True))
+        log(f"int8 up-conv {name} x{(n, h, w, c)} -> {co}: equal to the CPU path bit for "
+            f"bit (int32 sums, bf16 output, int8_all's input cotangent); {ms:.4f} ms "
+            f"(quantize + im2col + _int_mm + rescale; int32 part {gemm_ms:.4f} ms), cuDNN "
+            f"bf16 conv_transpose2d {cudnn_ms:.4f} ms; input cotangent {qbwd_ms:.4f} ms, "
+            f"cuDNN bf16 {cudnn_dx_ms:.4f} ms; bound {bound:.4f} ms ({bound_by})")
+
+    x = torch.randn(3, 96, 128, 192, generator=gen).cuda()
+    weight = model_bf16_cpu.synthesis.layer_2.hwio().detach().float().cuda()
+    wt = weight.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    variants = {}
+    with torch.no_grad():
+        ref = layers.conv_transpose_up2(x, wt)
+        forms = {"phases": lambda: layers.conv_transpose_phases_up2(x, weight),
+                 "subpixel": lambda: layers.depth_to_space2(
+                     layers._subpixel_conv(x, weight), weight.shape[3])}
+        for form, fn in forms.items():
+            err = rel_err(fn(), ref)
+            # Few launches: cuDNN's default float32 algorithm for the phases'
+            # 3x3 parity conv (192 -> 192) took 300-450 ms on an H100.
+            variants[form] = dict(rel_err=err, ms=time_ms(fn, iters=3, warmup=1),
+                                  transpose_ms=time_ms(lambda: layers.conv_transpose_up2(x, wt),
+                                                       iters=3, warmup=1))
+            log(f"up-conv {form} (3, 96, 128, 192) fp32: rel err {err:.2e} vs the "
+                f"transposed conv (tolerance {VARIANT_RTOL:g}); {variants[form]['ms']:.4f} ms "
+                f"vs {variants[form]['transpose_ms']:.4f} ms")
+            if not err <= VARIANT_RTOL:
+                raise AssertionError(f"the {form} up-conv disagrees with the transposed conv")
+    return rows, variants
+
+
+def run_quant_codec(workdir):
+    """(b) mbt2018 compress --quant int8 -> decompress --quant int8 through
+    the CLI: exact, its actual bpp beside nic_tpu's."""
+    from nic_tpu_torch.cli.main import main as cli_main
+    from nic_tpu_torch.ops import gdn_cuda
+
+    common = ["--num_filters", "192", "--checkpoint_dir", CKPT_DIR, "mbt2018"]
+    stream = os.path.join(workdir, "photos_int8.ntc")
+    png = os.path.join(workdir, "photos_int8.png")
+    gdn_cuda.launches = 0
+    out = cli_main(common + ["compress", RUN, PHOTOS, stream, "--quant", "int8",
+                             "--results_dir", os.path.join(workdir, "results_int8")])
+    encode_launches = gdn_cuda.launches
+    gdn_cuda.launches = 0
+    dec = cli_main(common + ["decompress", RUN, stream, png, "--quant", "int8"])
+    decode_launches = gdn_cuda.launches
+    check_exact("mbt2018 --quant int8", dec, png, out["pixels"])
+    res = out["results"]
+    actual = float(res["avg_batch_actual_bpp"])
+    d_actual = abs(actual - JAX_INT8_ACTUAL_BPP) / JAX_INT8_ACTUAL_BPP
+    log(f"mbt2018 --quant int8 compress -> decompress: exact; actual {actual!r} bpp "
+        f"({out['bytes']} bytes), est {float(res['est_bpp'].mean())!r}, PSNR "
+        f"{float(res['psnr'].mean())!r} dB; nic_tpu's actual {JAX_INT8_ACTUAL_BPP!r} "
+        f"(rel diff {d_actual:.2e}, tolerance {BPP_RTOL:g}), est {JAX_INT8_EST['est_bpp']!r}, "
+        f"PSNR {JAX_INT8_EST['psnr']!r} dB; K1 launches encode "
+        f"{encode_launches}, decode {decode_launches}")
+    if not d_actual <= BPP_RTOL:
+        raise AssertionError("mbt2018 --quant int8's actual bpp disagrees with nic_tpu's")
+    if encode_launches < 6 or decode_launches < 3:
+        raise AssertionError("the int8 codec path did not run K1 in every GDN")
+    return dict(actual_bpp=actual, est_bpp=float(res["est_bpp"].mean()),
+                psnr=float(res["psnr"].mean()), k1_launches_encode=encode_launches,
+                k1_launches_decode=decode_launches, encode_ms=out["timing"],
+                decode_ms=dec["timing"])
+
+
+def run_quant_sga(model_cpu, model_bf16_cpu):
+    """(c) bf16 SGA at --quant none, int8 and int8_all through
+    LatentOptimizer, METHOD_ITS steps each on the photos, K1's launches
+    counted from zero on each (e): ms/step, the RD objective below the same
+    model's amortized one, and the stream of the transmitted latents decoded
+    exactly; the first QUANT_STEPS steps of int8 and int8_all on a crop, the
+    card against the port's CPU path, with the CLI's float32 transforms."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.coding.codec import HyperpriorCodec
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.ops import gdn_cuda
+
+    x = np.load(PHOTOS).astype(np.float32) / 255.0
+    card = copy.deepcopy(model_bf16_cpu).to("cuda")
+    out = {}
+    for quant in QUANT_MODES:
+        model = card if quant == "none" else card.clone(quant=quant)
+        opt = LatentOptimizer(model, "cuda")
+        base = opt.eval_amortized(x)
+        rd_base = float(LMBDA * base["mse"].mean() + base["est_bpp"].mean())
+        gdn_cuda.launches = 0
+        res = opt.optimize(x, LMBDA, method=SGA.replace(iterations=METHOD_ITS), seed=0)
+        launches = gdn_cuda.launches
+        steps, loop_ms = opt.last_timing["steps"], opt.last_timing["loop_ms"]
+        rd = float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
+        codec = HyperpriorCodec(model, "cuda")
+        blob = codec.compress_optimized(res["y"], res["z"], x.shape[1:3])
+        x_hat = codec.decompress(blob)
+        exact = np.array_equal(np.round(x_hat * 255.0).astype(np.uint8), codec.last_pixels)
+        actual = len(blob) * 8 / (x.shape[0] * x.shape[1] * x.shape[2])
+        out[quant] = dict(steps=steps, ms_per_step=loop_ms / steps, k1_launches=launches,
+                          est_bpp=float(res["est_bpp"].mean()), psnr=float(res["psnr"].mean()),
+                          actual_bpp=actual, rd_objective=rd, rd_objective_amortized=rd_base,
+                          amortized_est_bpp=float(base["est_bpp"].mean()),
+                          amortized_psnr=float(base["psnr"].mean()), stream_exact=exact)
+        log(f"bf16 sga --quant {quant}: {steps} steps in {loop_ms:.1f} ms = "
+            f"{loop_ms / steps:.3f} ms/step; K1 launches {launches}; est bpp "
+            f"{out[quant]['est_bpp']!r}, PSNR {out[quant]['psnr']!r} dB, actual "
+            f"{actual!r} bpp, stream exact {exact}; rounded RD objective {rd!r} vs its "
+            f"amortized {rd_base!r}")
+        for k in ("est_bpp", "psnr", "losses"):
+            if not np.all(np.isfinite(res[k])):
+                raise AssertionError(f"sga --quant {quant}: {k} is not finite")
+        if steps != METHOD_ITS or launches < 3 * steps:
+            raise AssertionError(f"sga --quant {quant} ran {steps} steps with {launches} "
+                                 "K1 launches")
+        if not rd < rd_base:
+            raise AssertionError(f"sga --quant {quant} did not lower the RD objective")
+        if not exact:
+            raise AssertionError(f"sga --quant {quant}: the stream does not decode exactly")
+
+    crop = x[:1, 100:164, 200:264]
+    rng = np.random.default_rng(15)
+    y0, z0 = LatentOptimizer(model_cpu, "cpu").amortized_init(crop)
+    draws = {(it, name): torch.from_numpy(rng.gumbel(size=(*v.shape, 2)).astype(np.float32))
+             for it in range(QUANT_STEPS) for name, v in (("y", y0), ("z", z0))}
+
+    def noise_fn(step, name, shape):
+        return draws[(step, name)]
+
+    spec = SGA.replace(iterations=QUANT_STEPS)
+
+    for quant in QUANT_MODES[1:]:
+        r_g = LatentOptimizer(copy.deepcopy(model_cpu).clone(quant=quant), "cuda").optimize(
+            crop, LMBDA, method=spec, noise_fn=noise_fn)
+        r_c = LatentOptimizer(model_cpu.clone(quant=quant), "cpu").optimize(
+            crop, LMBDA, method=spec, noise_fn=noise_fn)
+        errs = np.abs(r_g["losses"] - r_c["losses"]) / np.abs(r_c["losses"])
+        out[quant].update(card_vs_cpu_first_loss_rel_err=float(errs[0]),
+                          card_vs_cpu_loss_rel_err=float(errs.max()))
+        log(f"sga --quant {quant} (float32 transforms): first {QUANT_STEPS} steps on a "
+            f"64x64 crop, card vs CPU: first loss rel err {errs[0]:.2e} (tolerance "
+            f"{QUANT_FIRST_RTOL:g}), largest {errs.max():.2e} (tolerance {QUANT_LOSS_RTOL:g})")
+        if not (errs[0] <= QUANT_FIRST_RTOL and errs.max() <= QUANT_LOSS_RTOL):
+            raise AssertionError(f"sga --quant {quant}: the card's steps disagree with the CPU's")
+    return out
+
+
+def run_int8_variants(model_cpu, model_bf16_cpu, workdir):
+    """Phase 15: (a) and (d) ``check_int8_convs``, (b) ``run_quant_codec``,
+    (c) and (e) ``run_quant_sga``."""
+    convs, variants = check_int8_convs(model_bf16_cpu)
+    return dict(int8_convs=convs, upsample_variants=variants,
+                mbt2018_int8=run_quant_codec(workdir),
+                sga_bf16=run_quant_sga(model_cpu, model_bf16_cpu))
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -2522,6 +2787,10 @@ def main():
         t = time.perf_counter()
         evaluation = run_evaluation(workdir, mbt2018_path)
         log(f"evaluation done in {time.perf_counter() - t:.1f} s")
+
+        t = time.perf_counter()
+        int8_variants = run_int8_variants(model_cpu, model_bf16, workdir)
+        log(f"int8 and up-sampling variants done in {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir)
 
@@ -2548,7 +2817,10 @@ def main():
                 dp_train_gloo_2=parallel["dp_training"]["gloo_2"]["k1_launches"],
                 sga_data_parallel=parallel["data_parallel"]["k1_launches"],
                 sga_spatial=parallel["spatial_cli"]["k1_launches"],
-                **{k: v["k1_launches"] for k, v in evaluation.items()}),
+                **{k: v["k1_launches"] for k, v in evaluation.items()},
+                **{f"sga_bf16_quant_{q}": v["k1_launches"]
+                   for q, v in int8_variants["sga_bf16"].items()},
+                mbt2018_int8_encode=int8_variants["mbt2018_int8"]["k1_launches_encode"]),
             max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
@@ -2562,7 +2834,8 @@ def main():
              "bf16 amortized": dict(est_bpp=float(amortized_bf16["est_bpp"].mean()),
                                     psnr=float(amortized_bf16["psnr"].mean())),
              **method_paths, **bb_paths, "train": train_path, "train_bb": train_bb_path,
-             "learned_prior": prior_path, **parallel, **evaluation}
+             "learned_prior": prior_path, **parallel, **evaluation,
+             "int8 and up-sampling variants": int8_variants}
     log(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)

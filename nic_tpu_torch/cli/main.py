@@ -38,9 +38,16 @@ no effect on ``mbt2018`` and the bits-back scripts. ``train`` with
 rank i of N data-parallel ranks: N counts ranks, one per card (nic_tpu's
 processes own every chip of their host).
 
-Every other flag (the ``--quant`` variants) exits non-zero with "not
-ported yet (ROADMAP.md)". It runs on the card unless ``--device cpu``
-is given, and raises when there is no card. Streams decode with the same
+``compress`` and ``decompress`` of ``mbt2018`` and of the five methods take
+``--quant {none,int8,int8_all}``: W8A8 int8 convolutions in g_s and h_s
+(``ops/int8conv.py``), on one rank, ``--data_parallel`` (the activation
+scales reduced over the ranks: the whole batch's) or ``--spatial`` (h_s in
+int8 on every rank, the row-sharded g_s in float, as in nic_tpu). The
+decoder recomputes mu and sigma through h_s, so a stream decodes only
+under the ``--quant`` it was written with. The bits-back scripts refuse it,
+as nic_tpu's do. The command line is nic_tpu's, every flag of it. It runs
+on the card unless ``--device cpu`` is given, and raises when there is no
+card. Streams decode with the same
 code on the same device type: ``decompress`` takes the ``--device`` that
 ``compress`` was given. The transforms compute in float32, as nic_tpu's CLI
 does; bfloat16 is reached through the library
@@ -205,6 +212,16 @@ def build_parser() -> argparse.ArgumentParser:
         c.add_argument("runname")
         c.add_argument("input_file")
         c.add_argument("output_file", nargs="?")
+        c.add_argument(
+            "--quant", choices=("none", "int8", "int8_all"), default="none",
+            help="Dynamic-quantized int8 convolutions for the frozen-weight "
+            "transforms (mbt2018 only; ops/int8conv.py). int8 quantizes the "
+            "decode-side forward convs; int8_all additionally runs the "
+            "input-cotangent conv of the 5x5/up2 layers in int8 during "
+            "optimization. The decoder recomputes coding distributions "
+            "through h_s, so compress and decompress MUST use the same "
+            "--quant value.",
+        )
     return parser
 
 
@@ -212,16 +229,14 @@ def _not_ported(what: str):
     sys.exit(f"nic_tpu_torch: {what} is not ported yet (ROADMAP.md)")
 
 
-def _check_ported(args, unknown: List[str]) -> None:
-    """Exit non-zero on any part of nic_tpu's command line the port lacks,
-    and, as nic_tpu does, on ``train`` of a method script."""
+def _check_ported(args) -> None:
+    """Exit non-zero on a command the port lacks, and, as nic_tpu does, on
+    ``train`` of a method script."""
     if args.command == "train":
         if args.script not in MODELS:
             sys.exit(f"{args.script} does not support training.")
     elif args.script not in PORTED:
         _not_ported(f"{args.script} {args.command}")
-    if unknown:
-        _not_ported(' '.join(unknown))
 
 
 def _resolve_lmbda(args) -> float:
@@ -240,13 +255,19 @@ def _batches(X):
 
 def _load(args, device=None):
     """The device (``args.device`` unless given) and the run's model:
-    MBT2018, or its bits-back variant for the bits-back scripts."""
+    MBT2018 in its ``--quant`` form, or the bits-back variant for the
+    bits-back scripts, which refuse ``--quant`` as nic_tpu's do."""
     from nic_tpu_torch.checkpoint import load_model
 
     device = cfg.resolve_device(device or args.device)
     model = "mbt2018_bb" if args.script in BB_SCRIPTS else "mbt2018"
+    quant = getattr(args, "quant", "none")
+    if quant != "none" and model != "mbt2018":
+        raise SystemExit("--quant supports the mbt2018 model only")
     _, net = load_model(args.checkpoint_dir, args.runname, args.num_filters, device,
                         model=model)
+    if quant != "none":
+        net = net.clone(quant=quant)
     return device, net
 
 
@@ -654,11 +675,11 @@ def main(argv: Optional[List[str]] = None):
 
         return train_prior_cli(build_prior_parser().parse_args(argv[1:]))
     parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)
+    args = parser.parse_args(argv)
     if args.command is None:
         parser.print_usage()
         sys.exit(2)
-    _check_ported(args, unknown)
+    _check_ported(args)
     if args.command == "train":
         return run_train(args, argv=list(argv))
     if args.command == "decompress":

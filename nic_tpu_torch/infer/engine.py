@@ -28,6 +28,7 @@ results are gathered: every rank returns the whole batch's. A batch that
 the ranks do not divide runs whole on every rank, with nic_tpu's warning.
 """
 
+import contextlib
 import time
 import warnings
 from typing import Callable, Dict, NamedTuple, Optional
@@ -41,6 +42,7 @@ from nic_tpu_torch.evaluation.metrics import msssim_db as msssim_db_fn
 from nic_tpu_torch.evaluation.metrics import psnr as psnr_fn
 from nic_tpu_torch.infer.adam import adam_init, adam_update
 from nic_tpu_torch.infer.methods import SGA, MethodSpec, get_method
+from nic_tpu_torch.models.layers import SignalConv
 from nic_tpu_torch.models.mbt2018 import LN2, MeanScaleHyperprior
 from nic_tpu_torch.ops.quantize import (
     danneal_relax,
@@ -224,6 +226,24 @@ def to_numpy(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
 
 
+@contextlib.contextmanager
+def global_scales(model, comm: Comm):
+    """While several ranks hold parts of one batch, the int8 layers' per-tensor
+    scales are the whole batch's: their max|x| is reduced over the ranks
+    (``SignalConv.scale_reduce``), as under nic_tpu's jit over a sharded
+    batch. Scoped to one call, so that a rank's own codec pass reduces
+    nothing."""
+    layers = [m for m in model.modules()
+              if isinstance(m, SignalConv) and m.quant is not None] if comm.size > 1 else []
+    for m in layers:
+        m.scale_reduce = comm.max
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.scale_reduce = None
+
+
 # ------------------------------------------------------------------- engine
 
 
@@ -282,8 +302,13 @@ class LatentOptimizer:
                 "msssim optimization objective needs images >= 176px on the "
                 f"short side (5 scales x 11-tap window); got {tuple(x.shape[1:3])}."
             )
+        comm = self._batch_comm(x.shape[0])
+        with global_scales(self.model, comm):
+            return self._optimize(x, comm, lmbda, method, seed, noise_fn, probe_every)
+
+    def _optimize(self, x, comm: Comm, lmbda: float, method: MethodSpec, seed: int,
+                  noise_fn: Optional[NoiseFn], probe_every: int) -> Dict[str, np.ndarray]:
         batch = x.shape[0]
-        comm = self._batch_comm(batch)
         lo, hi = comm.shard(batch)
         x = x[lo:hi]
         generator = torch.Generator(device=self.device).manual_seed(seed)

@@ -33,21 +33,47 @@ LN2 = 0.6931471805599453
 
 
 class MeanScaleHyperprior(nn.Module):
-    """The base hyperprior model: g_a, g_s, h_a, h_s and the z prior."""
+    """The base hyperprior model: g_a, g_s, h_a, h_s and the z prior.
 
-    def __init__(self, num_filters: int = 192, compute_dtype: torch.dtype = torch.float32):
+    ``upsample_impl`` ("transpose", "phases", "subpixel") is the form of
+    g_s's and h_s's up-convs; ``quant`` (None, "int8", "int8_all") makes
+    g_s's three N -> N up-convs and h_s's two up-convs W8A8
+    (ops/int8conv.py), for frozen-weight inference only. ``clone`` gives
+    another form sharing the parameters."""
+
+    def __init__(self, num_filters: int = 192, compute_dtype: torch.dtype = torch.float32,
+                 upsample_impl: str = "transpose", quant: Optional[str] = None):
         super().__init__()
         n = num_filters
         dt = compute_dtype
         self.num_filters = n
         self.compute_dtype = dt
+        self.upsample_impl = upsample_impl
+        self.quant = quant
         self.analysis = AnalysisTransform(n, dtype=dt)
-        self.synthesis = SynthesisTransform(n, dtype=dt)
+        self.synthesis = SynthesisTransform(n, dtype=dt, upsample_impl=upsample_impl,
+                                            quant=quant)
         self.hyper_analysis = HyperAnalysisTransform(n, dtype=dt)
         self.hyper_synthesis = MBT2018HyperSynthesisTransform(
-            n, num_output_filters=2 * n, dtype=dt)
+            n, num_output_filters=2 * n, dtype=dt, upsample_impl=upsample_impl,
+            quant=quant)
         self.entropy_bottleneck = FactorizedEntropyModel(n)
         self.conditional = GaussianConditional()
+
+    def clone(self, **changes) -> "MeanScaleHyperprior":
+        """This model with some of ``upsample_impl``, ``quant`` and
+        ``compute_dtype`` changed (nic_tpu's ``model.clone(quant=...)``): its
+        parameters and buffers are this model's own tensors, not copies."""
+        kwargs = dict(num_filters=self.num_filters, compute_dtype=self.compute_dtype,
+                      upsample_impl=self.upsample_impl, quant=self.quant)
+        kwargs.update(changes)
+        with torch.device("meta"):
+            twin = MeanScaleHyperprior(**kwargs)
+        twin.load_state_dict(self.state_dict(keep_vars=True), assign=True)
+        for key, buf in self.named_buffers():  # the non-persistent ones too
+            module, _, name = key.rpartition(".")
+            setattr(twin.get_submodule(module), name, buf)
+        return twin.train(self.training)
 
     # ----------------------------------------------------------- sub-passes
 
@@ -73,6 +99,16 @@ class MeanScaleHyperprior(nn.Module):
             h, w = x_hw
             x_tilde = x_tilde[:, :h, :w, :]
         return x_tilde
+
+    def synthesize_blocks(self, y_tilde, block_hw=None):
+        """The reconstruction in 2x2-block space (N, H/2, W/2, 12): the pixels
+        of ``synthesize`` modulo depth-to-space, optionally cropped to
+        ``block_hw`` blocks."""
+        xb = self.synthesis(y_tilde, block_space=True)
+        if block_hw is not None:
+            h, w = block_hw
+            xb = xb[:, :h, :w, :]
+        return xb
 
     def z_likelihood(self, z_tilde):
         """Lower-bounded factorized likelihood of a (possibly relaxed) z."""

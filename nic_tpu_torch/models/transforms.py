@@ -33,20 +33,30 @@ class AnalysisTransform(nn.Module):
 
 
 class SynthesisTransform(nn.Module):
-    """Latent -> image decoder g_s (4x 5x5/up2, IGDN after the first three)."""
+    """Latent -> image decoder g_s (4x 5x5/up2, IGDN after the first three).
 
-    def __init__(self, num_filters: int, dtype: torch.dtype = torch.float32):
+    ``quant`` (None, "int8", "int8_all") applies to the three N -> N
+    up-convs only; the 192 -> 3 output layer stays in ``dtype``.
+    ``upsample_impl`` applies to all four (``SignalConv``)."""
+
+    def __init__(self, num_filters: int, dtype: torch.dtype = torch.float32,
+                 upsample_impl: str = "transpose", quant: Optional[str] = None):
         super().__init__()
         n = num_filters
         for i in range(3):
-            setattr(self, f"layer_{i}", SignalConv(n, n, 5, strides_up=2, dtype=dtype))
+            setattr(self, f"layer_{i}", SignalConv(n, n, 5, strides_up=2, dtype=dtype,
+                                                   upsample_impl=upsample_impl,
+                                                   quant=quant))
             setattr(self, f"igdn_{i}", GDN(n, inverse=True, dtype=dtype))
-        self.layer_3 = SignalConv(n, 3, 5, strides_up=2, dtype=dtype)
+        self.layer_3 = SignalConv(n, 3, 5, strides_up=2, dtype=dtype,
+                                  upsample_impl=upsample_impl)
 
-    def forward(self, y):
+    def forward(self, y, block_space: bool = False):
+        """``block_space``: the last layer's output in 2x2-block space
+        (N, H/2, W/2, 12), the image modulo depth-to-space."""
         for i in range(3):
             y = getattr(self, f"igdn_{i}")(getattr(self, f"layer_{i}")(y))
-        return self.layer_3(y).float()
+        return self.layer_3(y, block_space_output=block_space).float()
 
 
 class HyperAnalysisTransform(nn.Module):
@@ -68,16 +78,22 @@ class HyperAnalysisTransform(nn.Module):
 
 
 class MBT2018HyperSynthesisTransform(nn.Module):
-    """z -> (mu, log sigma) decoder h_s; the middle layer widens to 1.5N."""
+    """z -> (mu, log sigma) decoder h_s; the middle layer widens to 1.5N.
+
+    ``quant`` applies to the two up-convs; the 3x3 output layer stays in
+    ``dtype``."""
 
     def __init__(self, num_filters: int, num_output_filters: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, upsample_impl: str = "transpose",
+                 quant: Optional[str] = None):
         super().__init__()
         n = num_filters
         mid = int(n * 1.5)
         out = num_output_filters or n
-        self.layer_0 = SignalConv(n, n, 5, strides_up=2, dtype=dtype)
-        self.layer_1 = SignalConv(n, mid, 5, strides_up=2, dtype=dtype)
+        self.layer_0 = SignalConv(n, n, 5, strides_up=2, dtype=dtype,
+                                  upsample_impl=upsample_impl, quant=quant)
+        self.layer_1 = SignalConv(n, mid, 5, strides_up=2, dtype=dtype,
+                                  upsample_impl=upsample_impl, quant=quant)
         self.layer_2 = SignalConv(mid, out, 3, strides_down=1, dtype=dtype)
 
     def forward(self, z):

@@ -7,9 +7,10 @@ through ``conv_transpose_igdn_up2``). Layouts are the JAX package's at every
 public function: x NHWC, w HWIO (5, 5, C, Co) un-flipped, as
 ``lax.conv_transpose(x, w, (2, 2), "SAME")`` takes it.
 
-The transposed conv is four output-parity GEMMs (derivation in
-nic_tpu/models/layers.py): out[2i+r, 2j+t] = sum_{a,b} x[i-a, j-b] @
-wf[2a+r+1, 2b+t+1] with wf = w[::-1, ::-1], and 4/6/6/9 live taps for the
+The transposed conv is four output-parity GEMMs (``phase_taps`` and
+``phase_weight_mats`` of models/layers.py):
+out[2i+r, 2j+t] = sum_{a,b} x[i-a, j-b] @ wf[2a+r+1, 2b+t+1] with
+wf = w[::-1, ::-1], and 4/6/6/9 live taps for the
 parities (0,0)/(0,1)/(1,0)/(1,1). The kernel runs them on the tensor
 cores (bf16, or fp32 through 3xTF32) and reads its weights and gamma
 pre-packed by ``pack_weights`` and ``pack_gamma``. The CUDA source has a
@@ -25,7 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from nic_tpu_torch.models.layers import conv_transpose_up2
+from nic_tpu_torch.models.layers import conv_transpose_up2, phase_taps, phase_weight_mats
 from nic_tpu_torch.ops.build import build_library
 from nic_tpu_torch.ops.gdn_cuda import gdn_reference
 
@@ -56,31 +57,6 @@ def _library():
         lib.nic_convt_igdn_max_channels.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def phase_taps(r: int, t: int):
-    """Tap offsets (a, b) of output parity (r, t), weight wf[2a+r+1, 2b+t+1]."""
-    a_taps = [a for a in (1, 0, -1) if 0 <= 2 * a + r + 1 < 5]
-    b_taps = [b for b in (1, 0, -1) if 0 <= 2 * b + t + 1 < 5]
-    return a_taps, b_taps
-
-
-def phase_weight_mats(w):
-    """Per-parity im2col weight matrices [taps*C, Co] of a (5, 5, C, Co)
-    kernel, taps a-major then b, parities in the order (0,0), (0,1), (1,0),
-    (1,1)."""
-    if tuple(w.shape[:2]) != (5, 5):
-        raise ValueError(f"w must be (5, 5, C, Co), got {tuple(w.shape)}")
-    wf = w.flip(0, 1)
-    mats = []
-    for r in range(2):
-        for t in range(2):
-            a_taps, b_taps = phase_taps(r, t)
-            mats.append(torch.cat(
-                [wf[2 * a + r + 1, 2 * b + t + 1] for a in a_taps for b in b_taps],
-                dim=0,
-            ))
-    return mats
 
 
 def _round_up(v: int, m: int) -> int:

@@ -126,11 +126,18 @@ class Comm:
         self.ms += (time.perf_counter() - t) * 1e3
         return out
 
-    def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks, in place; returns the tensor."""
+    def all_reduce(self, tensor: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Sum (or ``op``) over the ranks, in place; returns the tensor."""
         if self.group is not None:
-            self._run(lambda: dist.all_reduce(tensor, group=self.group), tensor)
+            self._run(lambda: dist.all_reduce(tensor, op=op, group=self.group), tensor)
         return tensor
+
+    def max(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over the ranks, in ``tensor``'s dtype (a
+        new tensor; reduced in float32, which holds a bfloat16 exactly)."""
+        if self.group is None:
+            return tensor
+        return self.all_reduce(tensor.float().clone(), dist.ReduceOp.MAX).to(tensor.dtype)
 
     def all_gather(self, tensor: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's tensor (each of the same shape), in rank order."""

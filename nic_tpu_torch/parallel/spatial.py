@@ -18,6 +18,10 @@ runs the whole iterative inference on its rows:
   the halo exchange's backward carries the other ranks' cotangents to its
   rows, so its latents get the gradient of the global loss.
 
+Under ``quant`` (int8 transforms) h_s runs in int8 on every rank alike, on
+the whole z, and the row-sharded g_s in float, as nic_tpu's spatial path
+builds it: a shard's own int8 scale would not be the image's.
+
 Per step the ranks exchange two halos per g_s layer (forward and backward)
 and reduce z's gradient and the loss. The collectives are ``all_gather`` and
 ``all_reduce`` only (``parallel/mesh.py``).
@@ -86,8 +90,11 @@ def _conv_down2(layer, x):
 
 def _conv_up2(layer, x):
     """A 5x5 up-2 conv on a halo-extended slab: 2 * (Hs + 4) rows, the
-    shard's 2 * Hs from row 4 (2 * HALO)."""
-    return layer(x)[:, 2 * HALO:-2 * HALO]
+    shard's 2 * Hs from row 4 (2 * HALO). Always the float transposed form:
+    nic_tpu's sharded g_s builds its layers without ``quant`` or
+    ``upsample_impl`` (a per-shard int8 scale would not be the image's);
+    h_s, on the whole z, keeps the model's."""
+    return layer(x, plain=True)[:, 2 * HALO:-2 * HALO]
 
 
 def analyze_sharded(model: MeanScaleHyperprior, x_local, comm: Comm):

@@ -3,8 +3,8 @@
 checkpoint and images, the methods' streams, ``--data_parallel`` and
 ``--spatial`` over gloo ranks and their refusals, ``train`` (a run served by
 ``compress`` -> ``decompress``, a resume, the bits-back model, ``--retries``,
-the multi-host flags' checks) and ``learned_prior``, the refusals of what is
-not ported, the device policy, and the port's independence from JAX.
+the multi-host flags' checks) and ``learned_prior``, the refusals nic_tpu makes
+too, the device policy, and the port's independence from JAX.
 
 Tolerance: float32 values 1e-5 relative, elementwise with an absolute floor
 of the same fraction of the largest reference magnitude.
@@ -182,18 +182,27 @@ def test_default_device_raises_without_a_card(workdir, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,script,before", [
-    (("--quant", "int8"), "mbt2018", ()),
-    (("out.ntc", "--quant", "int8"), "sga", ()),
-    (("--quant", "int8"), "sga", ()),
-    (("--quant", "int8"), "danneal", ()),
+    (("--quant", "int4"), "mbt2018", ()),
+    (("out.ntc", "--frobnicate"), "sga", ()),
+    (("--quant", "int8"), "bb_plain", ()),
+    (("--quant", "int8_all"), "bb_sga", ()),
     (("--quant", "int8"), "bb_no_sga", ("--verbose",)),
 ])
 def test_unported_parts_exit_nonzero(workdir, extra, script, before):
+    """Every flag of nic_tpu's command line is ported; what either CLI
+    refuses, the port refuses as nic_tpu does: a value or a flag nic_tpu's
+    parser does not know (argparse's exit 2, on both), and --quant on a
+    bits-back script (nic_tpu's message, before any checkpoint is read)."""
     argv = ["--device", "cpu", *before] + _argv(workdir, workdir / "res_x", *extra,
                                                 script=script)
     with pytest.raises(SystemExit) as info:
         main(argv)
-    assert "not ported yet (ROADMAP.md)" in str(info.value.code)
+    if script.startswith("bb_"):
+        assert info.value.code == "--quant supports the mbt2018 model only"
+        return
+    with pytest.raises(SystemExit) as jax_info:
+        jax_main(argv[2:])
+    assert info.value.code == jax_info.value.code == 2
 
 
 @pytest.mark.parametrize("extra,script,message", [

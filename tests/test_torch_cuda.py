@@ -724,3 +724,28 @@ def test_spatial_on_the_card_matches_the_unsharded_engine():
         assert np.mean(res["y"] == ref["y"]) >= 0.999
         np.testing.assert_allclose(res["est_bpp"], ref["est_bpp"], rtol=1e-3)
         assert launches >= 3 * 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,transpose,shape,co", [
+    (5, 2, True, (2, 6, 8, 16), 24), (5, 2, True, (1, 3, 5, 12), 20),
+    (5, 2, False, (2, 13, 9, 16), 12), (3, 1, False, (2, 7, 8, 16), 24),
+    (3, 2, True, (2, 5, 6, 12), 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_on_the_card_equals_the_cpu(k, stride, transpose, shape, co, dtype):
+    """The int8 convs (im2col and torch._int_mm, with padded rows and
+    channels) on the card equal the CPU path bit for bit: the forward, and
+    int8_all's input cotangent of the 5x5 stride-2 up-conv."""
+    from nic_tpu_torch.ops import int8conv
+
+    _need_card()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=gen).to(dtype)
+    w = (0.1 * torch.randn(k, k, shape[3], co, generator=gen)).to(dtype)
+    want = int8conv.int8_conv(x, w, stride, transpose)
+    got = int8conv.int8_conv(x.cuda(), w.cuda(), stride, transpose)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    if transpose and (k, stride) == (5, 2):
+        g = torch.randn(want.shape, generator=gen).to(torch.bfloat16)
+        assert torch.equal(int8conv.qbwd_x_up2(g.cuda(), w.cuda()).cpu(),
+                           int8conv.qbwd_x_up2(g, w))

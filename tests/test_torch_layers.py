@@ -3,7 +3,7 @@ the same parameters, on the CPU.
 
 The padding is the trap: XLA's SAME pads a stride-2 down conv 1/2 on even
 sizes and 2/2 on odd ones, and lax.conv_transpose takes an un-flipped HWIO
-kernel; both are checked at even and odd H and W. Tolerances: float32
+kernel (5x5 and 3x3); both are checked at even and odd H and W. Tolerances: float32
 values 1e-5 relative, gradients 1e-4, each elementwise with an absolute
 floor of the same fraction of the largest reference magnitude.
 """
@@ -40,6 +40,8 @@ CASES = [
     (3, 1, 1, 5, 7),
     (5, 1, 2, 6, 8),
     (5, 1, 2, 5, 7),
+    (3, 1, 2, 6, 8),
+    (3, 1, 2, 5, 7),
 ]
 
 
@@ -79,8 +81,11 @@ def test_signal_conv_without_bias_and_bad_configs():
     assert conv(torch.zeros(1, 8, 8, 4)).shape == (1, 4, 4, 5)
     with pytest.raises(ValueError):
         SignalConv(4, 5, 5, strides_down=2, strides_up=2)
+    # The up-conv forms nic_tpu refuses too.
     with pytest.raises(NotImplementedError):
-        SignalConv(4, 5, 3, strides_up=2)
+        SignalConv(4, 5, 3, strides_up=2, upsample_impl="phases")
+    with pytest.raises(NotImplementedError):
+        SignalConv(4, 5, 7, strides_up=2, upsample_impl="subpixel")
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -1,5 +1,5 @@
 """The ranks' side of the port's multi-rank CPU tests (``test_torch_spatial``,
-``test_torch_parallel``).
+``test_torch_parallel``, ``test_torch_int8``).
 
 ``nic_tpu_torch.parallel.mesh.spawn`` starts each rank in a fresh process
 that imports the function it runs by module and name, so these live in a
@@ -92,6 +92,26 @@ def spatial_cases(rank, device, state, x, x_odd, its, grad_inputs):
     out["sga"] = sp.optimize(x, 0.01, SGA.replace(iterations=its), noise_fn=SeededNoise(0, "sga"))
     out["grads"] = sharded_gradients(build_model(state, torch.float64), *grad_inputs, comm)
     out["comm_calls"] = comm.calls + sp.comm.calls
+    return out
+
+
+def spatial_int8_cases(rank, device, state, x, its):
+    """``test_torch_int8``'s spatial cases: danneal on the int8 model, and
+    the sharded g_s of the int8 and the float model (and the unsharded int8
+    g_s) on the transmitted y."""
+    group, comm = _rank_setup(device)
+    model = build_model(state)
+    quant = model.clone(quant="int8")
+    out = SpatialLatentOptimizer(quant, device, group).optimize(
+        x, 0.01, DANNEAL.replace(iterations=its))
+    y = torch.from_numpy(out["y"])
+    rows = y.shape[1] // comm.size
+    y_local = y[:, comm.rank * rows:(comm.rank + 1) * rows]
+    with torch.no_grad():
+        for name, m in (("int8", quant), ("float", model)):
+            out[f"g_s_{name}_model"] = comm.all_gather_cat(
+                synthesize_sharded(m, y_local, comm), 1).numpy()
+        out["g_s_unsharded_int8"] = quant.synthesis(y).numpy()
     return out
 
 
