@@ -128,6 +128,25 @@ Phases, each printed with its elapsed seconds:
                and subpixel up-convs against the transposed conv at g_s's
                largest layer, float32, timed; (e) K1's launches counted from
                zero on (b) and (c).
+ 16. the last scripts - K1 against its plain version (GDN and IGDN) and
+               timed at these paths' new shapes (the landscape grid's IGDN rows,
+               32 copies of photo 0, bf16; the demo's nf=16 training step,
+               float32); then in-process, K1's launches counted from zero on
+               each: (a) ``tools/sga_landscape``'s ``landscape`` (the paper's Fig. 2;
+               the card's machine has no matplotlib, so no figure) on photo 0
+               with the bf16 model, LANDSCAPE_ITS SGA steps recorded every
+               LANDSCAPE_RECORD_EVERY and a LANDSCAPE_GRID^2 grid: the
+               trajectory's first row is the amortized y, the objective finite
+               and not constant, a point evaluated inside a batch of 32 equal
+               to it alone, SGA's rounded RD objective below amortized; and on
+               a 64x64 crop with the fp32 model, fed one seeded set of Gumbel
+               draws, the trajectory, the samples and the grid, the card
+               against the port's CPU path; (b) ``tools/diagnose_photos`` on
+               the photos: the mean est. bpp against nic_tpu's amortized one,
+               the mean PSNR against nic_tpu's script's, no scale at the
+               table's top; (c) ``tools/demo`` (nf=16, 64x64): training
+               DEMO_STEPS steps, both streams decoded exactly, SGA below
+               amortized.
 Both kernels run on the tensor cores; their bounds count three TF32 products
 for each float32 product (``BOUND_DEFINITION``, printed after the build).
 Then a JSON line of kernel measurements (``kernels``) and of each path's own
@@ -457,6 +476,45 @@ QUANT_LOSS_RTOL = 1e-2
 # largest layer, float32 (the CPU tests' value tolerance, max-norm).
 VARIANT_RTOL = 1e-5
 
+# Phase 16, the last scripts. The landscape on photo 0 (y: 24 x 32 x 192),
+# SGA cut from the script's 2000 steps as METHOD_ITS; the grid point at the
+# trajectory's end evaluated inside a batch of 32 against alone (bf16 convs
+# at another batch size: other kernels, sums in another order). On a 64x64
+# crop, fp32, the card against the port's CPU path as METHOD_LOSS_RTOL: the
+# trajectory and the grid (evaluated on the card's y*, z*, coordinates and
+# axes on both), max-norm relative; the samples absolute.
+LANDSCAPE_ITS = 500
+LANDSCAPE_RECORD_EVERY = 25
+LANDSCAPE_GRID = 21
+LANDSCAPE_BATCH_RTOL = 1e-3
+LANDSCAPE_CROP_ITS = 20
+LANDSCAPE_CROP_RECORD_EVERY = 5
+LANDSCAPE_CROP_GRID = 5
+# diagnose_photos: the mean y_bpp + z_bpp is the amortized est. bpp (held at
+# BPP_RTOL against JAX_AMORTIZED_BPP). Its PSNR is that of the unrounded,
+# unclipped reconstruction, which is not the 8-bit PSNR of
+# JAX_AMORTIZED_PSNR (0.185 dB apart on these photos); it is held at
+# PSNR_ATOL_DB against nic_tpu's script on the CPU:
+#   JAX_PLATFORMS=cpu python scripts/diagnose_photos.py \
+#     checkpoints_synth3/mbt2018-num_filters=192-lmbda=0.01 data_real/eval_photos.npy
+#   -> "mean": psnr 28.976633071899414, sig_lo 0.5321519871552786, sig_hi 0.0
+JAX_DIAGNOSE = dict(psnr=28.976633071899414, sig_lo=0.5321519871552786, sig_hi=0.0)
+# No image may have more than this share of its scales at the table's top
+# (nic_tpu: none on these photos; 6.8e-6 at most on results/photos).
+SIG_HI_MAX = 1e-4
+# The demo's training steps and SGA steps (its defaults: 1500 and 500).
+DEMO_STEPS = 500
+DEMO_SGA_ITS = 200
+# K1's new shapes on these paths (rows, channels, dtype): the landscape's
+# grid, g_s's IGDN of 32 copies of photo 0's latents (bf16); the demo's
+# training step, g_a's GDN and g_s's IGDN at batch 8 of 64x64, nf=16 (fp32).
+LAST_SCRIPTS_K1 = (("sga_landscape grid", 98304, 192, "bfloat16"),
+                   ("sga_landscape grid", 393216, 192, "bfloat16"),
+                   ("sga_landscape grid", 1572864, 192, "bfloat16"),
+                   ("demo training", 8192, 16, "float32"),
+                   ("demo training", 2048, 16, "float32"),
+                   ("demo training", 512, 16, "float32"))
+
 T0 = time.perf_counter()
 
 
@@ -494,20 +552,20 @@ def bound_ms(nbytes, flops, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), old
 
 
-def k1_bound_ms(rows, dtype):
+def k1_bound_ms(rows, dtype, c=CHANNELS):
     size = 4 if dtype == "float32" else 2
-    nbytes = (2 * rows * CHANNELS + CHANNELS * CHANNELS) * size + CHANNELS * 4
-    return bound_ms(nbytes, 2 * rows * CHANNELS * CHANNELS, dtype)
+    nbytes = (2 * rows * c + c * c) * size + c * 4
+    return bound_ms(nbytes, 2 * rows * c * c, dtype)
 
 
-def k1_inputs(rows, generator):
+def k1_inputs(rows, generator, c=CHANNELS):
     import torch
 
     dev = "cuda"
-    x = 2.0 * torch.randn(rows, CHANNELS, device=dev, generator=generator)
-    gamma = 0.1 * torch.eye(CHANNELS, device=dev) + 0.01 * torch.rand(
-        CHANNELS, CHANNELS, device=dev, generator=generator)
-    beta = 1.0 + 0.1 * torch.rand(CHANNELS, device=dev, generator=generator)
+    x = 2.0 * torch.randn(rows, c, device=dev, generator=generator)
+    gamma = 0.1 * torch.eye(c, device=dev) + 0.01 * torch.rand(
+        c, c, device=dev, generator=generator)
+    beta = 1.0 + 0.1 * torch.rand(c, device=dev, generator=generator)
     return x, beta, gamma
 
 
@@ -2661,6 +2719,219 @@ def run_int8_variants(model_cpu, model_bf16_cpu, workdir):
                 sga_bf16=run_quant_sga(model_cpu, model_bf16_cpu))
 
 
+def check_k1_last_scripts():
+    """K1 against its plain version at the new shapes of phase 16's paths
+    (LAST_SCRIPTS_K1; GDN and IGDN, against the plain version on the same
+    inputs), and its times beside the bound, the plain version and cuBLAS's
+    addmm (IGDN)."""
+    import torch
+
+    from nic_tpu_torch.ops.gdn_cuda import gdn_forward_kernel, gdn_kernel, gdn_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    table, max_abs = [], 0.0
+    for path, rows, c, dtype in LAST_SCRIPTS_K1:
+        dt = getattr(torch, dtype)
+        x, beta, gamma = k1_inputs(rows, gen, c)
+        x, gamma = x.to(dt), gamma.to(dt)
+        errs = {}
+        with torch.no_grad():
+            for inverse in (False, True):
+                out = gdn_kernel(x, beta, gamma, inverse)
+                ref = gdn_reference(x, beta, gamma, inverse)
+                torch.cuda.synchronize()
+                errs["IGDN" if inverse else "GDN"] = rel_err(out, ref)
+                if dtype == "float32":
+                    max_abs = max(max_abs, float((out - ref).abs().max()))
+                del out, ref
+            xsq = x * x
+            ms = time_ms(lambda: gdn_forward_kernel(x, gamma, beta, True))
+            plain_ms = time_ms(lambda: gdn_reference(x, beta, gamma, True))
+            library_ms = time_ms(lambda: torch.addmm(beta.to(dt), xsq, gamma))
+        del x, xsq
+        torch.cuda.empty_cache()
+        bound, bound_by, _ = k1_bound_ms(rows, dtype, c)
+        tol = K1_RTOL[dtype]
+        table.append(dict(rows=rows, channels=c, path=path, dtype=dtype, rel_err=errs, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                          library_ms=library_ms))
+        log(f"K1 at {path}'s M={rows} C={c} {dtype}: rel err GDN {errs['GDN']:.2e}, IGDN "
+            f"{errs['IGDN']:.2e} (tolerance {tol:g}); IGDN kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, addmm [cuBLAS] {library_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by})")
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"K1 disagrees with its plain version at M={rows} C={c}")
+    return table, max_abs
+
+
+def run_landscape(model_cpu, model_bf16_cpu):
+    """(a) the landscape of photo 0 with the bf16 model, and on a crop the
+    card against the port's CPU path (fp32)."""
+    import numpy as np
+    import torch
+
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import sga_landscape
+    from nic_tpu_torch.utils import pad_to_64
+
+    photos = np.load(PHOTOS).astype(np.float32) / 255.0
+    x = pad_to_64(photos[:1])
+    card = copy.deepcopy(model_bf16_cpu).to("cuda")
+    opt = LatentOptimizer(card, "cuda")
+    base = opt.eval_amortized(x)
+    rd_base = float(LMBDA * base["mse"].mean() + base["est_bpp"].mean())
+    y0 = opt.amortized_init(x)[0].cpu().numpy()
+    t = time.perf_counter()
+    gdn_cuda.launches = 0
+    land = sga_landscape.landscape(card, x, LMBDA, SGA.replace(iterations=LANDSCAPE_ITS),
+                                   LANDSCAPE_RECORD_EVERY, LANDSCAPE_GRID, 1.2, 0,
+                                   device="cuda")
+    launches = gdn_cuda.launches
+    secs = time.perf_counter() - t
+    res, zz = land["result"], land["objective"]
+    rd = float(LMBDA * res["mse"].mean() + res["est_bpp"].mean())
+    rows = res["trajectory_y"].shape[0]
+    first_equal = bool(np.array_equal(res["trajectory_y"][0], y0))
+
+    # The trajectory's end inside a batch of 32 (with 31 grid points) and alone.
+    y_star, z_star, xt = (torch.as_tensor(a, device="cuda")
+                          for a in (res["trajectory_y"][-1], res["trajectory_z"][-1], x))
+    args = (card, xt, y_star, z_star, land["coords"])
+    vv1, vv2 = np.meshgrid(land["g1"], land["g2"])
+    v1 = np.concatenate([[land["t1"][-1]], vv1.ravel()[:31]])
+    v2 = np.concatenate([[land["t2"][-1]], vv2.ravel()[:31]])
+    in_batch = sga_landscape.objective_at(*args, v1, v2, LMBDA)[0]
+    alone = sga_landscape.objective_at(*args, v1[:1], v2[:1], LMBDA)[0]
+    batch_err = abs(float(in_batch) - float(alone)) / abs(float(alone))
+    log(f"sga_landscape: {LANDSCAPE_ITS} bf16 SGA steps on photo 0, {rows} rows recorded, "
+        f"first row equal to the amortized y: {first_equal}; coords {land['coords']} moved "
+        f"{float(land['moved'][0]):.3f}, {float(land['moved'][1]):.3f}; {LANDSCAPE_GRID}^2 "
+        f"grid objective in [{float(zz.min())!r}, {float(zz.max())!r}]; the trajectory's end "
+        f"in a batch of 32 {float(in_batch)!r} vs alone {float(alone)!r} (rel diff "
+        f"{batch_err:.2e}, tolerance {LANDSCAPE_BATCH_RTOL:g}); rounded RD objective {rd!r} "
+        f"vs amortized {rd_base!r}; K1 launches {launches}; {secs:.1f} s")
+    if not first_equal or rows != LANDSCAPE_ITS // LANDSCAPE_RECORD_EVERY + 1:
+        raise AssertionError("sga_landscape: the trajectory does not start at amortized y")
+    if not (np.all(np.isfinite(zz)) and np.ptp(zz) > 0):
+        raise AssertionError("sga_landscape: the grid objective is not finite or constant")
+    if not batch_err <= LANDSCAPE_BATCH_RTOL:
+        raise AssertionError("sga_landscape: a grid point in a batch differs from alone")
+    if not rd < rd_base:
+        raise AssertionError("sga_landscape: SGA did not lower the RD objective")
+    if launches < 3 * LANDSCAPE_ITS:
+        raise AssertionError(f"K1 launched {launches} times on sga_landscape")
+
+    crop = photos[:1, 100:164, 200:264]
+    rng = np.random.default_rng(16)
+    y0c, z0c = LatentOptimizer(model_cpu, "cpu").amortized_init(crop)
+    draws = {(it, name): rng.gumbel(size=(*v.shape, 2)).astype(np.float32)
+             for it in range(LANDSCAPE_CROP_ITS) for name, v in (("y", y0c), ("z", z0c))}
+    draws.update({(i, "sample"): rng.gumbel(size=(2, 2)).astype(np.float32)
+                  for i in range(1, LANDSCAPE_CROP_ITS // LANDSCAPE_CROP_RECORD_EVERY + 1)})
+
+    def noise_fn(step, name, shape):
+        return torch.from_numpy(draws[(step, name)])
+
+    spec = SGA.replace(iterations=LANDSCAPE_CROP_ITS)
+    lands = {dev: sga_landscape.landscape(
+        model_cpu if dev == "cpu" else copy.deepcopy(model_cpu).to("cuda"), crop, LMBDA,
+        spec, LANDSCAPE_CROP_RECORD_EVERY, LANDSCAPE_CROP_GRID, 1.2, 0, noise_fn, dev)
+        for dev in ("cuda", "cpu")}
+    g, c = lands["cuda"], lands["cpu"]
+    traj_err = rel_err(torch.from_numpy(g["trajectory"]), torch.from_numpy(c["trajectory"]))
+    sample_err = float(np.abs(g["samples"] - c["samples"]).max())
+    vv1, vv2 = np.meshgrid(g["g1"], g["g2"])
+    cpu_grid = sga_landscape.objective_at(
+        model_cpu, torch.from_numpy(crop), *(torch.from_numpy(g["result"][k][-1])
+                                             for k in ("trajectory_y", "trajectory_z")),
+        g["coords"], vv1.ravel(), vv2.ravel(), LMBDA).reshape(vv1.shape)
+    grid_err = rel_err(torch.from_numpy(g["objective"]), torch.from_numpy(cpu_grid))
+    log(f"sga_landscape (float32): {LANDSCAPE_CROP_ITS} steps on a 64x64 crop recorded every "
+        f"{LANDSCAPE_CROP_RECORD_EVERY}, card vs CPU: trajectory rel err {traj_err:.2e}, "
+        f"{LANDSCAPE_CROP_GRID}^2 grid rel err {grid_err:.2e} (tolerance "
+        f"{METHOD_LOSS_RTOL:g}), samples abs err {sample_err:.2e}; coords card "
+        f"{g['coords']}, CPU {c['coords']}")
+    if not (traj_err <= METHOD_LOSS_RTOL and grid_err <= METHOD_LOSS_RTOL
+            and sample_err <= METHOD_LOSS_RTOL):
+        raise AssertionError("sga_landscape: the card disagrees with the CPU on the crop")
+    return dict(k1_launches=launches, seconds=secs, steps=LANDSCAPE_ITS, rows=rows,
+                coords=list(land["coords"]), moved=[float(m) for m in land["moved"]],
+                objective_min=float(zz.min()), objective_max=float(zz.max()),
+                in_batch_vs_alone_rel_err=batch_err, rd_objective=rd,
+                rd_objective_amortized=rd_base, est_bpp=float(res["est_bpp"].mean()),
+                psnr=float(res["psnr"].mean()),
+                card_vs_cpu=dict(trajectory_rel_err=traj_err, grid_rel_err=grid_err,
+                                 samples_abs_err=sample_err,
+                                 coords_equal=g["coords"] == c["coords"]))
+
+
+def run_diagnose(workdir):
+    """(b) diagnose_photos on the photos against nic_tpu's numbers."""
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import diagnose_photos
+
+    out = os.path.join(workdir, "diagnose.json")
+    t = time.perf_counter()
+    gdn_cuda.launches = 0
+    record = diagnose_photos.main([os.path.join(CKPT_DIR, RUN), PHOTOS, "--out", out])
+    launches = gdn_cuda.launches
+    secs = time.perf_counter() - t
+    mean = record["mean"]
+    bpp = mean["y_bpp"] + mean["z_bpp"]
+    d_bpp = abs(bpp - JAX_AMORTIZED_BPP) / JAX_AMORTIZED_BPP
+    d_psnr = abs(mean["psnr"] - JAX_DIAGNOSE["psnr"])
+    sig_hi = max(r["sig_hi"] for r in record["rows"])
+    log(f"diagnose_photos: mean est. bpp {bpp!r} vs nic_tpu's amortized {JAX_AMORTIZED_BPP!r} "
+        f"(rel diff {d_bpp:.2e}, tolerance {BPP_RTOL:g}); mean PSNR {mean['psnr']!r} dB vs "
+        f"nic_tpu's script {JAX_DIAGNOSE['psnr']!r} (diff {d_psnr:.2e} dB, tolerance "
+        f"{PSNR_ATOL_DB:g}); sig_lo {mean['sig_lo']!r} (nic_tpu {JAX_DIAGNOSE['sig_lo']!r}), "
+        f"largest sig_hi {sig_hi!r} (at most {SIG_HI_MAX:g}); K1 launches {launches}; "
+        f"{secs:.1f} s")
+    if not (d_bpp <= BPP_RTOL and d_psnr <= PSNR_ATOL_DB and sig_hi <= SIG_HI_MAX):
+        raise AssertionError("diagnose_photos disagrees with nic_tpu's numbers")
+    with open(out) as f:
+        if json.load(f) != record:
+            raise AssertionError("diagnose_photos' JSON is not its record")
+    if launches < 6 * len(record["rows"]):
+        raise AssertionError(f"K1 launched {launches} times on diagnose_photos")
+    return dict(k1_launches=launches, seconds=secs, est_bpp=bpp, **mean)
+
+
+def run_demo():
+    """(c) the demo at its nf=16, 64x64 configuration."""
+    from nic_tpu_torch.ops import gdn_cuda
+    from nic_tpu_torch.tools import demo
+
+    t = time.perf_counter()
+    gdn_cuda.launches = 0
+    out = demo.main(["--steps", str(DEMO_STEPS), "--sga_its", str(DEMO_SGA_ITS)])
+    launches = gdn_cuda.launches
+    secs = time.perf_counter() - t
+    amortized, sga = out["amortized"], out["sga"]
+    log(f"demo: {out['steps']} training steps; amortized {amortized['actual_bpp']!r} bpp "
+        f"actual, RD objective {amortized['rd_objective']!r}; SGA {sga['actual_bpp']!r} bpp "
+        f"actual, RD objective {sga['rd_objective']!r}; both streams exact "
+        f"{out['streams_exact']}; K1 launches {launches}; {secs:.1f} s")
+    if not (out["streams_exact"] and sga["rd_objective"] < amortized["rd_objective"]):
+        raise AssertionError("demo: a stream was not exact or SGA did not improve")
+    if out["steps"] != DEMO_STEPS or launches < 6 * DEMO_STEPS + 3 * DEMO_SGA_ITS:
+        raise AssertionError(f"demo: {out['steps']} steps, K1 launched {launches} times")
+    out.pop("train_losses")
+    return dict(k1_launches=launches, seconds=secs, **out)
+
+
+def run_last_scripts(model_cpu, model_bf16_cpu, workdir):
+    """Phase 16: K1 at the paths' new shapes (``check_k1_last_scripts``), then
+    (a) ``run_landscape``, (b) ``run_diagnose``, (c) ``run_demo``. Returns
+    (K1's table, its largest float32 error, the paths)."""
+    k1_table, k1_max_abs = check_k1_last_scripts()
+    paths = dict(sga_landscape=run_landscape(model_cpu, model_bf16_cpu),
+                 diagnose_photos=run_diagnose(workdir), demo=run_demo())
+    return k1_table, k1_max_abs, paths
+
+
 def kernel_row(name, source, replaces, launches, max_abs, row, library, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs, ms=row["ms"],
@@ -2791,6 +3062,11 @@ def main():
         t = time.perf_counter()
         int8_variants = run_int8_variants(model_cpu, model_bf16, workdir)
         log(f"int8 and up-sampling variants done in {time.perf_counter() - t:.1f} s")
+
+        t = time.perf_counter()
+        k1_last, k1_last_max_abs, last_scripts = run_last_scripts(model_cpu, model_bf16,
+                                                                  workdir)
+        log(f"last scripts done in {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir)
 
@@ -2800,10 +3076,10 @@ def main():
         kernel_row(
             "gdn (K1, fused GDN/IGDN)", "nic_tpu_torch/csrc/gdn.cu",
             "nic_tpu/ops/pallas_gdn.py:23", k1_launches,
-            max(k1_max_abs, k1_train_max_abs, k1_multi_max_abs), k1_row,
+            max(k1_max_abs, k1_train_max_abs, k1_multi_max_abs, k1_last_max_abs), k1_row,
             "torch.addmm(beta, x^2, gamma), the cuBLAS product at K1's core",
             shape=f"IGDN M={k1_row['rows']} C={CHANNELS} float32",
-            shapes=k1_timings + k1_multi,
+            shapes=k1_timings + k1_multi + k1_last,
             launches_by_path=dict(
                 sga=k1_launches, sga_bf16=k1_bf16_launches,
                 **{m: method_paths[m]["k1_launches"] for m in METHODS},
@@ -2820,7 +3096,8 @@ def main():
                 **{k: v["k1_launches"] for k, v in evaluation.items()},
                 **{f"sga_bf16_quant_{q}": v["k1_launches"]
                    for q, v in int8_variants["sga_bf16"].items()},
-                mbt2018_int8_encode=int8_variants["mbt2018_int8"]["k1_launches_encode"]),
+                mbt2018_int8_encode=int8_variants["mbt2018_int8"]["k1_launches_encode"],
+                **{k: v["k1_launches"] for k, v in last_scripts.items()}),
             max_abs_err_bf16_on_the_model=k1_bf16_model_abs),
         kernel_row(
             "convt_igdn (K2, fused 5x5 up-conv + IGDN)", "nic_tpu_torch/csrc/convt_igdn.cu",
@@ -2835,7 +3112,7 @@ def main():
                                     psnr=float(amortized_bf16["psnr"].mean())),
              **method_paths, **bb_paths, "train": train_path, "train_bb": train_bb_path,
              "learned_prior": prior_path, **parallel, **evaluation,
-             "int8 and up-sampling variants": int8_variants}
+             "int8 and up-sampling variants": int8_variants, **last_scripts}
     log(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels, "paths": paths}))
     print(smi)

@@ -115,6 +115,15 @@ def params_from_jax(flat: Dict[str, np.ndarray],
     num_filters = int(flat["analysis/layer_0/kernel"].shape[-1])
     with torch.device("meta"):
         template = MODELS[model][0](num_filters)
+    return module_params_from_jax(template, flat)
+
+
+def module_params_from_jax(template: torch.nn.Module,
+                           flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A state_dict of ``template`` (any module of the port whose submodule
+    names are nic_tpu's, e.g. a transform) from nic_tpu's flat parameters of
+    the same module; ``template`` may live on the meta device. Raises on a
+    missing, extra or mis-shaped key."""
     expected = template.state_dict()
     state, extra = {}, []
     for key, value in flat.items():

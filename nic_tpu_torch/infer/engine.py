@@ -110,9 +110,7 @@ def _rd_loss(model, latents: Latents, x, lmbda: float, temperature,
     rank passes the global batch and gets its share of the global loss."""
     _, _, y_lik, z_lik, _, _, x_tilde = _forward(model, latents, x, temperature, method, noise)
     batch = batch or x.shape[0]
-    num_pixels = x.shape[1] * x.shape[2]
-    y_bpp = -torch.sum(torch.log(y_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
-    z_bpp = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
+    y_bpp, z_bpp = _bpp(y_lik, z_lik, x)
     train_bpp = torch.sum(y_bpp + z_bpp) / batch
     mse = torch.sum(torch.square(x - x_tilde)) / (batch * x[0].numel()) * (255.0 ** 2)
     if distortion == "msssim":
@@ -121,6 +119,26 @@ def _rd_loss(model, latents: Latents, x, lmbda: float, temperature,
         dist = mse
     loss = lmbda * dist + train_bpp if lmbda > 0 else train_bpp
     return loss, dict(mse=mse, bpp=train_bpp)
+
+
+def _bpp(y_lik, z_lik, x):
+    """Each image's estimated bits per pixel of y and of z."""
+    num_pixels = x.shape[1] * x.shape[2]
+    y_bpp = -torch.sum(torch.log(y_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
+    z_bpp = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
+    return y_bpp, z_bpp
+
+
+@torch.no_grad()
+def rd_objective_per_image(model, latents: Latents, x, lmbda: float):
+    """Each image's own continuous (MAP: latents unrounded) ``_rd_loss``
+    objective, 255^2 MSE distortion, as if it were evaluated alone: a batch
+    of independent evaluations, e.g. copies of one image's latents that
+    differ in a few coordinates."""
+    _, _, y_lik, z_lik, _, _, x_tilde = _forward(model, latents, x, 1.0, "map")
+    y_bpp, z_bpp = _bpp(y_lik, z_lik, x)
+    mse = torch.mean(torch.square(x - x_tilde), dim=(1, 2, 3)) * (255.0 ** 2)
+    return lmbda * mse + (y_bpp + z_bpp) if lmbda > 0 else y_bpp + z_bpp
 
 
 @torch.no_grad()
@@ -176,10 +194,7 @@ def _eval_transmitted(model, x, latents: Latents, compute_msssim: bool):
     mu, sigma = model.hyper_synthesize(latents.z, y_hw)
     y_lik = model.y_likelihood(latents.y, mu, sigma)
     x_tilde = model.synthesize(latents.y, (x.shape[1], x.shape[2]))
-
-    num_pixels = x.shape[1] * x.shape[2]
-    y_bpp = -torch.sum(torch.log(y_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
-    z_bpp = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / (LN2 * num_pixels)
+    y_bpp, z_bpp = _bpp(y_lik, z_lik, x)
     return dict(
         **distortion_metrics(x, x_tilde, compute_msssim),
         est_bpp=y_bpp + z_bpp,
@@ -284,8 +299,8 @@ class LatentOptimizer:
         return Comm()
 
     def optimize(self, x, lmbda: float, method: MethodSpec = SGA, seed: int = 0,
-                 noise_fn: Optional[NoiseFn] = None,
-                 probe_every: int = 0) -> Dict[str, np.ndarray]:
+                 noise_fn: Optional[NoiseFn] = None, probe_every: int = 0,
+                 record_every: int = 0) -> Dict[str, np.ndarray]:
         """Run the full iterative inference for one image batch.
 
         Returns the transmitted latents, the per-image eval metrics and, for
@@ -294,6 +309,14 @@ class LatentOptimizer:
         (``rounded_losses``: the --verbose probes); the early-stopping
         methods return both empty, as nic_tpu does. ``last_timing`` holds
         the steps actually run and the loop's device time.
+
+        ``record_every`` > 0 also records the continuous latents at step 0
+        and after every ``record_every`` steps and the last one (the
+        trajectory of nic_tpu's scripts/sga_landscape.py): ``trajectory_y``
+        and ``trajectory_z`` [rows, N, ...] and ``trajectory_temperatures``
+        (each row's last step's temperature; NaN for row 0). The rows stay
+        on the device until the loop ends. An early-stopping method's rows
+        end where it stopped.
         """
         get_method(method.name)
         x = self._tensor(x)
@@ -304,10 +327,12 @@ class LatentOptimizer:
             )
         comm = self._batch_comm(x.shape[0])
         with global_scales(self.model, comm):
-            return self._optimize(x, comm, lmbda, method, seed, noise_fn, probe_every)
+            return self._optimize(x, comm, lmbda, method, seed, noise_fn, probe_every,
+                                  record_every)
 
     def _optimize(self, x, comm: Comm, lmbda: float, method: MethodSpec, seed: int,
-                  noise_fn: Optional[NoiseFn], probe_every: int) -> Dict[str, np.ndarray]:
+                  noise_fn: Optional[NoiseFn], probe_every: int,
+                  record_every: int) -> Dict[str, np.ndarray]:
         batch = x.shape[0]
         lo, hi = comm.shard(batch)
         x = x[lo:hi]
@@ -321,6 +346,8 @@ class LatentOptimizer:
         probes = torch.full((its,), float("nan"), device=self.device)
         # Early stop: the latents of the last improving probe.
         saved, prev_obj, stopped, steps = None, float("inf"), False, its
+        # The recorded rows: (temperature, y, z), device copies.
+        rows = [(float("nan"), y0, z0)] if record_every > 0 else None
 
         # sga draws a Gumbel pair per latent, unoise one uniform draw; each
         # at the global batch's shape, this rank's images kept.
@@ -352,6 +379,8 @@ class LatentOptimizer:
             )
             grads = torch.autograd.grad(loss, (y, z))
             state = adam_update((y, z), grads, state, method.lr)
+            if rows is not None and ((it + 1) % record_every == 0 or it == its - 1):
+                rows.append((temperature, y.detach().clone(), z.detach().clone()))
             loss = reduced(loss)
             if not method.early_stop:
                 losses[it] = loss
@@ -391,6 +420,12 @@ class LatentOptimizer:
         metrics = _eval_transmitted(self.model, x, transmitted, compute_msssim)
         metrics.update(y=transmitted.y, z=transmitted.z)
         metrics = {k: comm.all_gather_cat(v, 0) for k, v in metrics.items()}
+        if rows is not None:
+            temperatures, ys, zs = zip(*rows)
+            metrics.update(
+                trajectory_y=comm.all_gather_cat(torch.stack(ys), 1),
+                trajectory_z=comm.all_gather_cat(torch.stack(zs), 1),
+                trajectory_temperatures=torch.tensor(temperatures, dtype=torch.float32))
         if method.early_stop:
             losses = probes = torch.zeros(0)
         return dict(

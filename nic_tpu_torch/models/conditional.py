@@ -6,7 +6,6 @@ index for entropy coding. Stateless.
 """
 
 from dataclasses import dataclass, field
-from statistics import NormalDist
 from typing import Optional
 
 import numpy as np
@@ -15,7 +14,8 @@ import torch
 from nic_tpu_torch import config
 from nic_tpu_torch.ops.bounds import lower_bound
 from nic_tpu_torch.ops.quantize import uniform_noise
-from nic_tpu_torch.ops.stats import box_convolved_gaussian_likelihood
+from nic_tpu_torch.ops.stats import (box_convolved_gaussian_likelihood,
+                                     standardized_quantile)
 
 
 @dataclass(frozen=True)
@@ -70,7 +70,7 @@ class GaussianConditional:
 
     def support_halfwidths(self) -> np.ndarray:
         """Per-level integer half-width of the coded support (host)."""
-        multiplier = -NormalDist().inv_cdf(self.tail_mass / 2.0)
+        multiplier = -standardized_quantile(self.tail_mass / 2.0)
         return np.ceil(np.asarray(self.scale_table) * multiplier).astype(np.int64)
 
     def pmfs_for_coding(self):

@@ -168,6 +168,16 @@ def _subpixel_conv(x, w):
                     k4.permute(3, 2, 0, 1).contiguous()).permute(0, 2, 3, 1)
 
 
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """nic_tpu's initial values for every layer of ``model`` that has them
+    (``reset_parameters``), drawn in module order from ``generator``."""
+    for module in model.modules():
+        reset = getattr(module, "reset_parameters", None)
+        if reset is not None:
+            reset(generator=generator)
+    return model
+
+
 class SignalConv(nn.Module):
     """2-D convolution with integer down- or up-sampling (NHWC in and out).
 

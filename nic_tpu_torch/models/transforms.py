@@ -77,6 +77,27 @@ class HyperAnalysisTransform(nn.Module):
         return self.layer_2(y).float()
 
 
+class HyperSynthesisTransform(nn.Module):
+    """The symmetric z -> (mu, log sigma) decoder (2x 5x5/up2 with relu, then
+    a 3x3 conv to ``num_output_filters``). No model uses it: MBT2018 and its
+    bits-back variant take ``MBT2018HyperSynthesisTransform``. It is nic_tpu's
+    public ``HyperSynthesisTransform``, kept with its parameter names."""
+
+    def __init__(self, num_filters: int, num_output_filters: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        n = num_filters
+        out = num_output_filters or n
+        self.layer_0 = SignalConv(n, n, 5, strides_up=2, dtype=dtype)
+        self.layer_1 = SignalConv(n, n, 5, strides_up=2, dtype=dtype)
+        self.layer_2 = SignalConv(n, out, 3, dtype=dtype)
+
+    def forward(self, z):
+        z = torch.relu(self.layer_0(z))
+        z = torch.relu(self.layer_1(z))
+        return self.layer_2(z).float()
+
+
 class MBT2018HyperSynthesisTransform(nn.Module):
     """z -> (mu, log sigma) decoder h_s; the middle layer widens to 1.5N.
 

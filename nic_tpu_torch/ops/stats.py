@@ -17,6 +17,14 @@ def gaussian_standardized_cumulative(x):
     return 0.5 * torch.special.erfc(-(2 ** -0.5) * x)
 
 
+def standardized_quantile(p: float) -> float:
+    """Inverse standard-normal CDF of a Python float (a host-side helper):
+    sizes the conditional model's coded supports from their tail mass."""
+    from statistics import NormalDist
+
+    return NormalDist().inv_cdf(p)
+
+
 def box_convolved_gaussian_likelihood(inputs, mu, sigma):
     """Likelihood of ``inputs`` under N(mu, sigma^2) * U(-0.5, 0.5).
 

@@ -1,7 +1,7 @@
 """Where the time of an SGA step goes on the card: a torch.profiler window.
 
   python -m nic_tpu_torch.tools.profile_sga [--steps 100] [--out chiprun_out/profile_sga.txt]
-      [--dtype bfloat16]
+      [--dtype bfloat16] [--record_every N]
 
 Runs the main path's workload (MBT2018 nf=192, the lambda=0.01 checkpoint,
 data_real/eval_photos.npy: 3 x 384 x 512; transforms in float32, or in
@@ -16,7 +16,8 @@ card's clocks, power and temperature (nvidia-smi) before and after, to
 show whether a long run slows. Prints one JSON line; writes the full kernel
 table to ``--out``. The convolutions' tensor-core share is the part of their
 time spent in kernels whose names mark a tensor-core implementation
-(``on_tensor_cores``).
+(``on_tensor_cores``). ``--record_every N`` runs every loop with the
+trajectory recording of ``optimize(record_every=N)`` (the SGA landscape's).
 """
 
 import argparse
@@ -123,6 +124,8 @@ def main(argv=None):
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute dtype of the transforms")
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_sga.txt"))
+    p.add_argument("--record_every", type=int, default=0,
+                   help="record the latents every N steps (0: no recording)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sga: needs a CUDA card")
@@ -132,18 +135,19 @@ def main(argv=None):
                           compute_dtype=getattr(torch, args.dtype))
     opt = LatentOptimizer(model, "cuda")
     x = np.load(os.path.join(ROOT, "data_real", "eval_photos.npy")).astype(np.float32) / 255.0
-    opt.optimize(x, 0.01, method=SGA.replace(iterations=20))  # warm-up
+    rec = args.record_every
+    opt.optimize(x, 0.01, method=SGA.replace(iterations=20), record_every=rec)  # warm-up
     spec = SGA.replace(iterations=args.steps)
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
-        opt.optimize(x, 0.01, method=spec)
+        opt.optimize(x, 0.01, method=spec, record_every=rec)
     loop_ms = opt.last_timing["loop_ms"]
     # Timed runs without the profiler: the profiler's own cost stays out.
-    opt.optimize(x, 0.01, method=spec)
+    opt.optimize(x, 0.01, method=spec, record_every=rec)
     loop_ms_plain = opt.last_timing["loop_ms"]
     card_before = smi("clocks.sm,power.draw,temperature.gpu")
-    opt.optimize(x, 0.01, method=SGA)
+    opt.optimize(x, 0.01, method=SGA, record_every=rec)
     long_ms_per_step = opt.last_timing["loop_ms"] / SGA.iterations
     card_after = smi("clocks.sm,power.draw,temperature.gpu")
 
@@ -151,7 +155,8 @@ def main(argv=None):
     steps = args.steps
     summary = dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi("name,power.limit"),
-        dtype=args.dtype, steps=steps, step_ms_profiled=loop_ms / steps, step_ms=loop_ms_plain / steps,
+        dtype=args.dtype, record_every=rec, steps=steps, step_ms_profiled=loop_ms / steps,
+        step_ms=loop_ms_plain / steps,
         full_run_steps=SGA.iterations, full_run_step_ms=long_ms_per_step,
         clocks_power_temp_before_full_run=card_before,
         clocks_power_temp_after_full_run=card_after,

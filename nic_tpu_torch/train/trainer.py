@@ -57,7 +57,7 @@ import torch
 from nic_tpu_torch import checkpoint as ckpt_lib
 from nic_tpu_torch.config import resolve_device, set_fp32_precision
 from nic_tpu_torch.infer.engine import device_timer
-from nic_tpu_torch.models.layers import GDN
+from nic_tpu_torch.models.layers import GDN, init_parameters
 from nic_tpu_torch.models.mbt2018 import MeanScaleHyperprior, rd_loss
 from nic_tpu_torch.models.mbt2018_bb import BitsBackHyperprior, bb_rd_loss
 from nic_tpu_torch.ops.quantize import draw_uniform
@@ -219,11 +219,7 @@ class Trainer:
         """Fresh parameters (drawn on the host from the seed, so that every
         device starts from the same ones), optimizer, step 0 and generator."""
         init_generator = torch.Generator().manual_seed(_stream_seed(self.cfg.seed, 0))
-        model = self._model_cls(self.cfg.num_filters)
-        for module in model.modules():
-            reset = getattr(module, "reset_parameters", None)
-            if reset is not None:
-                reset(generator=init_generator)
+        model = init_parameters(self._model_cls(self.cfg.num_filters), init_generator)
         self.model = model.to(self.device)
         # Gradients averaged inside the backward (see the module's docstring).
         self._averaged = set()

@@ -23,6 +23,13 @@ def load_input(path: str) -> np.ndarray:
     return read_image(path)[None, ...]
 
 
+def pad_to_64(x: np.ndarray) -> np.ndarray:
+    """An [N, H, W, C] batch edge-padded at the bottom and right to multiples
+    of 64, the model's total stride."""
+    ph, pw = (-x.shape[1]) % 64, (-x.shape[2]) % 64
+    return np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
+
+
 def quantize_image(img: np.ndarray) -> np.ndarray:
     """float [0,1] -> uint8 with saturation."""
     return np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)

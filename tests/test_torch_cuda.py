@@ -749,3 +749,94 @@ def test_int8_conv_on_the_card_equals_the_cpu(k, stride, transpose, shape, co, d
         g = torch.randn(want.shape, generator=gen).to(torch.bfloat16)
         assert torch.equal(int8conv.qbwd_x_up2(g.cuda(), w.cuda()).cpu(),
                            int8conv.qbwd_x_up2(g, w))
+
+
+@pytest.mark.cuda
+def test_sga_landscape_on_the_card_matches_the_cpu():
+    """tools/sga_landscape on a 64x64 crop with a seeded nf=16 model, fed one
+    set of Gumbel draws on both devices: the trajectory, the samples and the
+    grid (the card's y*, z*, coordinates and axes evaluated on both) within
+    1e-3 (float32 sums in another order through 10 Adam steps, as
+    test_method_first_steps_card_vs_cpu); the first row is the amortized y,
+    and the recorded run's latents equal an unrecorded run's."""
+    _need_card()
+    import numpy as np
+
+    from nic_tpu_torch.infer.engine import LatentOptimizer
+    from nic_tpu_torch.infer.methods import SGA
+    from nic_tpu_torch.models.mbt2018 import MeanScaleHyperprior
+    from nic_tpu_torch.tools import sga_landscape
+
+    def model(device):
+        m = MeanScaleHyperprior(16)
+        m.load_state_dict(_small_model_state(16))
+        return m.to(device)
+
+    x = _photo_crops()[:1]
+    y0, z0 = LatentOptimizer(model("cpu"), "cpu").amortized_init(x)
+    rng = np.random.default_rng(2)
+    draws = {(it, n): rng.gumbel(size=(*v.shape, 2)).astype(np.float32)
+             for it in range(10) for n, v in (("y", y0), ("z", z0))}
+    draws.update({(i, "sample"): rng.gumbel(size=(2, 2)).astype(np.float32)
+                  for i in range(1, 6)})
+
+    def noise_fn(step, name, shape):
+        return torch.from_numpy(draws[(step, name)])
+
+    spec = SGA.replace(iterations=10)
+    lands = {dev: sga_landscape.landscape(model(dev), x, 0.01, spec, 2, 4, 1.2, 0, noise_fn,
+                                          dev) for dev in ("cuda", "cpu")}
+    g, c = lands["cuda"], lands["cpu"]
+    assert _rel(torch.from_numpy(g["trajectory"]), torch.from_numpy(c["trajectory"])) <= 1e-3
+    assert np.abs(g["samples"] - c["samples"]).max() <= 1e-3
+    np.testing.assert_array_equal(g["result"]["trajectory_y"][0],
+                                  LatentOptimizer(model("cuda"), "cuda").amortized_init(x)[0]
+                                  .cpu().numpy())
+    vv1, vv2 = np.meshgrid(g["g1"], g["g2"])
+    star = [torch.from_numpy(g["result"][k][-1]) for k in ("trajectory_y", "trajectory_z")]
+    cpu_grid = sga_landscape.objective_at(model("cpu"), torch.from_numpy(x), *star,
+                                          g["coords"], vv1.ravel(), vv2.ravel(), 0.01)
+    assert _rel(torch.from_numpy(g["objective"].ravel()), torch.from_numpy(cpu_grid)) <= 1e-3
+    plain = LatentOptimizer(model("cuda"), "cuda").optimize(x, 0.01, method=spec,
+                                                            noise_fn=noise_fn)
+    assert not any(k.startswith("trajectory") for k in plain)
+    torch.backends.cudnn.deterministic = True
+    try:
+        rec = LatentOptimizer(model("cuda"), "cuda").optimize(x, 0.01, method=spec,
+                                                              noise_fn=noise_fn, record_every=3)
+        plain = LatentOptimizer(model("cuda"), "cuda").optimize(x, 0.01, method=spec,
+                                                                noise_fn=noise_fn)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    np.testing.assert_array_equal(rec["losses"], plain["losses"])
+    np.testing.assert_array_equal(rec["y"], plain["y"])
+
+
+@pytest.mark.cuda
+def test_diagnose_photos_and_demo_on_the_card(tmp_path):
+    """diagnose_photos on the card against the CPU (a seeded nf=16 run, two
+    crops): every field within 1e-4, the scale shares within 1e-3 (a scale
+    at a bound may move across it by an ulp); the demo at a tiny size runs
+    on the card with both streams exact."""
+    _need_card()
+    import json
+
+    import numpy as np
+
+    from nic_tpu_torch.checkpoint import export_params_npz, params_to_jax
+    from nic_tpu_torch.tools import demo, diagnose_photos
+
+    run = tmp_path / "mbt2018-num_filters=16-lmbda=0.01"
+    run.mkdir()
+    export_params_npz(str(run), 0, params_to_jax(_small_model_state(16)))
+    (run / "args.json").write_text(json.dumps({"num_filters": 16}))
+    np.save(tmp_path / "crops.npy", (_photo_crops(70, 90) * 255).round().astype(np.uint8))
+    got = diagnose_photos.main([str(run), str(tmp_path / "crops.npy")])
+    ref = diagnose_photos.main([str(run), str(tmp_path / "crops.npy"), "--device", "cpu"])
+    for g, r in zip(got["rows"], ref["rows"]):
+        assert list(g) == list(r)
+        for k in r:
+            tol = 1e-3 if k.startswith("sig") else 1e-4
+            assert abs(g[k] - r[k]) <= tol * max(abs(r[k]), 1.0), k
+    out = demo.main(["--num_filters", "4", "--steps", "5", "--sga_its", "3"])
+    assert out["streams_exact"] and out["steps"] == 5
